@@ -7,18 +7,26 @@ Phases (any failure raises and the process exits non-zero):
   0. device: needs torch.cuda; prints the card's name and power limit
      (nvidia-smi) and the CUDA version;
   1. build: compiles the kernel library from mvskit_tpu_torch/csrc;
-  2. kernel vs plain: the NCC window sampler's ungrouped and grouped
-     launches against the plain PyTorch version, at the main path's
-     shapes on a 16 x 640x480, 4-level plane scene (4096 patches x 6
-     views; 4096 x 32 refinement candidates x 6 views), with CUDA-event
-     timings;
-  3. main path: writes the 16 x 640x480, 4096-seed plane dataset and
+  2. kernels vs plain: the NCC window sampler's four launches (RGB and
+     luma, ungrouped and grouped) against their plain PyTorch versions,
+     bit for bit, at the main path's shapes on a 16 x 640x480, 4-level
+     plane scene (4096 patches x 6 views; 4096 x 32 refinement
+     candidates x 6 views), with CUDA-event timings and each kernel's
+     bound (least time for its bytes and operations on an H100);
+  3. RGB main path: writes the 16 x 640x480, 4096-seed plane dataset and
      runs `mvskit_tpu_torch.cli.main` with the default config (3
-     iterations, 8 rounds, 6 x 32 RGB search, 2^18-row table), then
-     checks the launch counters, the outputs and the quality against the
-     analytic plane.
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}.
+     iterations, 8 rounds, 6 x 32 RGB search, 2^18-row table);
+  4. luma search: `PMMVS` with luma_refine=True on phase 3's dataset at
+     full depth (4 luma rounds through the grouped luma kernel, then 2
+     RGB rounds), then a short run with refine_group_dma=False, which
+     launches the ungrouped luma kernel;
+  5. multi-illumination: a 3-illumination dataset of the same size
+     through `cli.main` with the default config (every score averaged
+     over the 3 illuminations).
+Each path runs with the launch counters set to 0 just before it and
+read just after; each checks its outputs and its quality against the
+analytic plane. The line before the last is the kernels' JSON record;
+the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -34,9 +42,26 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 WSIZE, LEVEL, TAU, N_CANDS = 7, 1, 6, 32
 KERNEL_SOURCE = "mvskit_tpu_torch/csrc/sample_windows.cu"
 REPLACES = "mvskit_tpu/ops/pallas_ncc.py:190"
-# quality bar of the round (E2E_r05.json, a TPU v5e run of the JAX
-# package: acc_mean 0.0116 at 0.05, comp_frac 1.0)
-ACC_MEAN_MAX, COMP_FRAC_MIN, ACC_MEAN_BAR = 0.015, 0.98, 0.012
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 FLOP/s
+# outside the tensor cores
+HBM_BYTES_PER_S, F32_FLOPS = 3.35e12, 67e12
+# float32 operations per sample: lattice 8 (4 mul + 4 add); tap
+# fractions 4; RGB: 4 tap weights + 3 channels x 4 taps x (mul + add);
+# luma: 4 taps x 2 mul + 3 add
+FLOPS_PER_SAMPLE = {"rgb": 8 + 4 + 4 + 24, "luma": 8 + 4 + 11}
+# limits per path (acc_mean max, comp_frac min) at 0.05 against the
+# analytic plane. RGB and multi-illumination: the round's carried-over
+# quality bar (E2E_r05.json, a TPU v5e run of the JAX package: acc_mean
+# 0.0116, comp_frac 1.0) with margin; luma: E2E_r05_luma.json (0.0158 /
+# 0.9997 on the TPU).
+LIMITS = {"rgb": (0.015, 0.98), "luma": (0.017, 0.98), "illum3": (0.015, 0.98)}
+ACC_MEAN_BAR = 0.012
+KERNELS = (  # name, launch-counter form, channel mode, window set
+    ("sample_windows_ungrouped", "ungrouped", "rgb", "ungrouped"),
+    ("sample_windows_grouped", "grouped", "rgb", "grouped"),
+    ("sample_windows_luma_ungrouped", "luma_ungrouped", "luma", "ungrouped"),
+    ("sample_windows_luma_grouped", "luma_grouped", "luma", "grouped"),
+)
 
 
 def log(*a):
@@ -70,7 +95,7 @@ def cuda_time_ms(fn, reps: int = 7) -> float:
     return times[len(times) // 2]
 
 
-def window_sets(dev):
+def window_sets(dev, n_views=16, width=640, height=480, n_patches=4096):
     """Windows of real patch geometry at the main path's shapes: 4096
     plane patches with their 6 best views (sortImages order), and the
     4096 x 32 jittered refinement candidates of round 0 over the same
@@ -78,20 +103,21 @@ def window_sets(dev):
     T, B) flattened T-major."""
     import torch
 
-    from mvskit_tpu_torch.ops import ncc
     from mvskit_tpu_torch.geometry import camera as cam
+    from mvskit_tpu_torch.ops import ncc
     from mvskit_tpu_torch.pipeline import refine as rf
     from mvskit_tpu_torch.pipeline import views as vw
     from mvskit_tpu_torch.utils import synthetic
 
     Ps, _, scene = synthetic.plane_scene(
-        n_views=16, width=640, height=480, max_level=LEVEL + 3, device=dev
+        n_views=n_views, width=width, height=height, max_level=LEVEL + 3,
+        device=dev,
     )
-    coord_np, normal_np = synthetic.plane_points(Ps, 4096, seed=1, extent=0.8)
+    coord_np, normal_np = synthetic.plane_points(Ps, n_patches, seed=1, extent=0.8)
     coord = torch.as_tensor(coord_np, dtype=torch.float32, device=dev)
     normal = torch.as_tensor(normal_np, dtype=torch.float32, device=dev)
     B = coord.shape[0]
-    empty = torch.full((B, 16), -1, dtype=torch.int32, device=dev)
+    empty = torch.full((B, n_views), -1, dtype=torch.int32, device=dev)
     images = vw.add_images(scene, coord, normal, empty, LEVEL, 1.0471976)
     images = vw.sort_images(scene, coord, normal, images, LEVEL, is_fixed=False)
     views = images[:, :TAU]
@@ -131,137 +157,299 @@ def window_sets(dev):
     c = rf.decode_coord(rep(coord), rep(ray), rep(ds), cand[:, 0])
     n = rf.decode_normal(scene, rep(ref), cand[:, 1] * ascale, cand[:, 2] * ascale)
     grouped = geometry(rep(views), c, n)
-    return scene, ungrouped, grouped
+    return scene, {"ungrouped": ungrouped, "grouped": grouped}
 
 
-def compare(a, b):
-    """(max |a - b| over entries finite in both, NaN positions agree)."""
+def touched_pixels(scene, idx, lvl, tl, dx, dy, mode: str) -> int:
+    """Distinct plane pixels (4-byte words) the windows read: the four
+    taps of each sample in the RGB form, the one quad of each sample in
+    the luma form."""
     import torch
 
-    both = torch.isfinite(a) & torch.isfinite(b)
-    err = (a - b).abs()[both].max().item() if both.any() else 0.0
-    same_nan = bool(torch.equal(torch.isnan(a), torch.isnan(b)))
-    return err, same_nan
+    from mvskit_tpu_torch.ops import cuda_ncc, sampling
+
+    planes = scene.planes_luma_quad if mode == "luma" else scene.planes_packed
+    n, ni, total = planes.shape
+    seen = torch.zeros(n * ni * total, dtype=torch.bool, device=planes.device)
+    step = 1 << 18
+    for s in range(0, idx.shape[0], step):
+        sl = slice(s, s + step)
+        gx, gy = cuda_ncc.lattice(tl[sl], dx[sl], dy[sl], WSIZE)
+        lv = lvl[sl].long().clamp(0, len(scene.offsets) - 1).unsqueeze(1)
+        w = scene.lvl_widths[lv]
+        lx, ly = sampling._bilinear_frac(gx, gy, w, scene.lvl_heights[lv])[:2]
+        base = ((idx[sl].long() * ni).unsqueeze(1) * total + scene.lvl_offsets[lv]
+                + ly * w + lx).long()
+        for d in ((0,) if mode == "luma" else (0, 1, w.long(), w.long() + 1)):
+            seen[(base + d).reshape(-1)] = True
+    return int(seen.sum())
+
+
+def bound(nwin: int, mode: str, touched: int):
+    """Least time (ms) for the kernel's work on an H100 and what bounds
+    it: the bytes it must move (32 B of window parameters per window,
+    each touched plane word once, each output float once) over HBM
+    bandwidth, against its float32 operations over the f32 peak."""
+    S = WSIZE * WSIZE
+    out_floats = nwin * S * (1 if mode == "luma" else 3)
+    nbytes = nwin * 32 + touched * 4 + out_floats * 4
+    flops = nwin * S * FLOPS_PER_SAMPLE[mode]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
+
+
+def bits_equal(a, b) -> bool:
+    import torch
+
+    return bool(torch.equal(a.contiguous().view(torch.int32),
+                            b.contiguous().view(torch.int32)))
 
 
 def kernel_phase(dev):
-    """Phase 2. Returns the per-kernel records (without launches)."""
+    """Phase 2. Returns the per-kernel records (without path launches)."""
     import torch
 
     from mvskit_tpu_torch.ops import cuda_ncc, ncc
 
-    scene, ung, grp = window_sets(dev)
+    scene, sets = window_sets(dev)
     S = WSIZE * WSIZE
     card = card_line()
     records = {}
-    for name, ws, group in (("sample_windows_ungrouped", ung, 1),
-                            ("sample_windows_grouped", grp, N_CANDS)):
-        idx, lvl, tl, dx, dy, valid, T, Bw = ws
+    for name, form, mode, wset in KERNELS:
+        idx, lvl, tl, dx, dy, valid, T, Bw = sets[wset]
+        luma = mode == "luma"
+        group = N_CANDS if wset == "grouped" else 1
         nwin = idx.shape[0]
         kern = lambda: cuda_ncc.sample_windows(  # noqa: E731
-            scene, idx, lvl, tl, dx, dy, WSIZE, group=group)[0]
-        plain = lambda: cuda_ncc.sample_windows_plain(  # noqa: E731
-            scene, idx, lvl, tl, dx, dy, WSIZE)
+            scene, idx, lvl, tl, dx, dy, WSIZE, group=group, luma=luma)[0]
+        plain_fn = cuda_ncc.sample_windows_luma_plain if luma else cuda_ncc.sample_windows_plain
+        plain = lambda: plain_fn(scene, idx, lvl, tl, dx, dy, WSIZE)  # noqa: E731
         out_k = kern()
         torch.cuda.synchronize()
         out_p = plain()
         torch.cuda.synchronize()
-        err, same_nan = compare(out_k, out_p)
-        vmask = valid.reshape(-1)
-        err_valid, _ = compare(out_k[vmask], out_p[vmask])
-        if not same_nan or err > 1e-3:
-            raise AssertionError(f"{name}: kernel vs plain max err {err}, NaN agree {same_nan}")
+        bitwise = bits_equal(out_k, out_p)
+        both = torch.isfinite(out_k) & torch.isfinite(out_p)
+        err = (out_k - out_p).abs()[both].max().item() if both.any() else 0.0
+        if not bitwise:
+            raise AssertionError(f"{name}: kernel differs from its plain version "
+                                 f"(max |d| {err})")
         # NCC costs through normalize_tex / incc_cost
-        costs = []
-        for out in (out_k, out_p):
-            tex = ncc.normalize_tex(out.reshape(T, Bw, 3 * S), 3, S)
-            costs.append(ncc.incc_cost(tex, valid, 3))
-        cost_err, _ = compare(costs[0], costs[1])
-        if cost_err > 2e-4:
-            raise AssertionError(f"{name}: NCC cost err {cost_err} > 2e-4")
-        rec = {"windows": nwin, "valid_frac": float(vmask.float().mean()),
-               "max_abs_err": err, "max_abs_err_valid": err_valid,
-               "cost_max_abs_err": cost_err}
-        if group > 1:
-            # the grouped launch equals the ungrouped launch bit for bit
-            out_u = cuda_ncc.sample_windows(scene, idx, lvl, tl, dx, dy, WSIZE, group=1)[0]
-            torch.cuda.synchronize()
-            bitwise = bool(torch.equal(out_u.view(torch.int32), out_k.view(torch.int32)))
-            rec["bitwise_equal_ungrouped"] = bitwise
-            if not bitwise:
-                raise AssertionError("grouped output differs from ungrouped")
-            rec["ungrouped_ms_same_windows"] = cuda_time_ms(
-                lambda: cuda_ncc.sample_windows(scene, idx, lvl, tl, dx, dy, WSIZE)[0])
-        rec["ms"] = cuda_time_ms(kern)
-        rec["plain_ms"] = cuda_time_ms(plain)
+        C = 1 if luma else 3
+        tex = ncc.normalize_tex(out_k.reshape(T, Bw, C * S), C, S)
+        cost = ncc.incc_cost(tex, valid, 3)
+        if not torch.isfinite(cost).all():
+            raise AssertionError(f"{name}: non-finite NCC cost")
+        touched = touched_pixels(scene, idx, lvl, tl, dx, dy, mode)
+        b_ms, b_by, nbytes, flops = bound(nwin, mode, touched)
+        rec = {"windows": nwin, "valid_frac": float(valid.float().mean()),
+               "max_abs_err": err, "bitwise_equal_plain": bitwise,
+               "touched_plane_words": touched, "bytes": nbytes, "flops": flops,
+               "bound_ms": b_ms, "bound_by": b_by}
+        # the ungrouped launch on the same windows
+        ung_fn = lambda: cuda_ncc.sample_windows(  # noqa: E731
+            scene, idx, lvl, tl, dx, dy, WSIZE, luma=luma)[0]
+        if wset == "grouped":
+            rec["bitwise_equal_ungrouped"] = bits_equal(ung_fn(), out_k)
+            if not rec["bitwise_equal_ungrouped"]:
+                raise AssertionError(f"{name}: grouped output differs from ungrouped")
+        # kernel, plain, kernel, plain (and the ungrouped launch on the
+        # grouped windows between them), each a median of 7
+        ms, plain_ms, ung_ms = [], [], []
+        for _ in range(2):
+            ms.append(cuda_time_ms(kern))
+            if wset == "grouped":
+                ung_ms.append(cuda_time_ms(ung_fn))
+            plain_ms.append(cuda_time_ms(plain))
+        rec["ms_runs"], rec["plain_ms_runs"] = ms, plain_ms
+        rec["ms"], rec["plain_ms"] = min(ms), min(plain_ms)
+        if ung_ms:
+            rec["ungrouped_ms_same_windows"] = min(ung_ms)
+        rec["library_ms"] = None  # no single PyTorch call computes it (PERF.md)
+        rec["bound_share"] = b_ms / rec["ms"]
         rec["msamples_per_s"] = nwin * S / rec["ms"] / 1e3
-        rec["plain_msamples_per_s"] = nwin * S / rec["plain_ms"] / 1e3
         log(f"[kernel] {name} on {card}: " + json.dumps(rec))
         records[name] = rec
-        del out_k, out_p, costs
+        del out_k, out_p, tex, cost
         torch.cuda.empty_cache()
     return records
 
 
-def main_path_phase(dev, workdir):
-    """Phase 3: the port's CLI on the dinoSparseRing-sized plane
-    dataset. Returns (report, quality, launches)."""
+def plane_quality(cloud):
     import numpy as np
 
-    from mvskit_tpu.io import ply
-    from mvskit_tpu.utils import metrics
-    from mvskit_tpu_torch import cli
-    from mvskit_tpu_torch.ops import cuda_ncc
-    from mvskit_tpu_torch.utils import synthetic
+    from mvskit_tpu_torch.utils import metrics
 
-    prefix = os.path.join(workdir, "plane16")
-    t0 = time.time()
-    synthetic.write_dataset(prefix, n_views=16, width=640, height=480, n_seeds=4096)
-    log(f"[main] dataset written in {time.time() - t0:.2f} s")
-    out = os.path.join(prefix, "ply", "final_patches")
-    report_path = os.path.join(workdir, "report.json")
-
-    cuda_ncc.reset_launches()
-    t0 = time.time()
-    rc = cli.main([prefix, "--device", "cuda", "--export-patch", "--out", out,
-                   "--report", report_path])
-    wall = time.time() - t0
-    launches = dict(cuda_ncc.LAUNCHES)
-    if rc != 0:
-        raise AssertionError(f"cli.main returned {rc}")
-    with open(report_path) as f:
-        report = json.load(f)
-    log(f"[main] cli.main wall {wall:.2f} s; launches {json.dumps(launches)}")
-    for st in report["stages"]:
-        log(f"[main] stage {json.dumps(st)}")
-    log(f"[main] alive per iteration {report['alive_per_iter']}, "
-        f"filter kills {json.dumps(report['filters'])}")
-
-    for ext in (".ply", ".patch"):
-        if not os.path.exists(out + ext):
-            raise AssertionError(f"missing output {out + ext}")
-    cloud = ply.read_ply(out + ".ply")["xyz"]
     g = np.linspace(-1.0, 1.0, 200)
     xs, ys = np.meshgrid(g, g)
     gt = np.stack([xs.ravel(), ys.ravel(), np.zeros(xs.size)], axis=1)
     m = metrics.accuracy_completeness(cloud, gt, threshold=0.05, crop_to_gt_bbox=True)
     m["plane_rms"] = metrics.plane_rms(cloud)
-    log(f"[main] quality vs analytic plane @0.05: {json.dumps(m)}")
-    log(f"[main] acc_mean {m['acc_mean']:.6f} (limit {ACC_MEAN_MAX}, round bar "
-        f"{ACC_MEAN_BAR} from E2E_r05.json), comp_frac {m['comp_frac']:.4f} "
-        f"(limit {COMP_FRAC_MIN})")
-    hyp = sum(s.get("hypotheses", 0) for s in report["stages"])
-    prop_s = sum(s["seconds"] for s in report["stages"] if s["stage"].startswith("propagate"))
-    log(f"[main] hypotheses {hyp}, {hyp / max(prop_s, 1e-9):.1f} hypotheses/s "
-        f"over {prop_s:.2f} s of propagation")
+    return m
 
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel form never launched on the main path: {launches}")
+
+def summarize(tag, report, wall, launches, m):
+    """Log a path's stages, throughput, launches and quality."""
+    for st in report["stages"]:
+        log(f"[{tag}] stage {json.dumps(st)}")
+    hyp = sum(s.get("hypotheses", 0) for s in report["stages"])
+    prop_s = sum(s["seconds"] for s in report["stages"]
+                 if s["stage"].startswith("propagate"))
+    summary = {"wall_s": wall, "launches": launches,
+               "alive_per_iter": report["alive_per_iter"],
+               "filter_kills": report["filters"], "hypotheses": hyp,
+               "propagate_s": prop_s, "hypotheses_per_s": hyp / max(prop_s, 1e-9),
+               "peak_mem_gib": report.get("peak_mem_gib"), "quality": m}
+    log(f"[{tag}] summary " + json.dumps(summary))
+    return summary
+
+
+def check_quality(tag, m, limits):
+    acc_max, comp_min = limits
+    log(f"[{tag}] acc_mean {m['acc_mean']:.6f} (limit {acc_max}), comp_frac "
+        f"{m['comp_frac']:.4f} (limit {comp_min})")
+    if not (m["acc_mean"] <= acc_max and m["comp_frac"] >= comp_min):
+        raise AssertionError(f"{tag}: quality below the limits {limits}: {m}")
+
+
+def cli_path(tag, dev, prefix, extra=()):
+    """The port's CLI on `prefix` with the launch counters reset just
+    before and read just after. Returns (report, wall, launches, m)."""
+    import torch
+
+    from mvskit_tpu_torch import cli
+    from mvskit_tpu_torch.io import ply
+    from mvskit_tpu_torch.ops import cuda_ncc
+
+    out = os.path.join(prefix, "ply", "final_patches")
+    report_path = os.path.join(prefix, f"report_{tag}.json")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    cuda_ncc.reset_launches()
+    t0 = time.time()
+    rc = cli.main([prefix, "--device", dev.type, "--export-patch", "--out", out,
+                   "--report", report_path, *extra])
+    wall = time.time() - t0
+    launches = dict(cuda_ncc.LAUNCHES)
+    if rc != 0:
+        raise AssertionError(f"{tag}: cli.main returned {rc}")
+    with open(report_path) as f:
+        report = json.load(f)
+    if dev.type == "cuda":
+        report["peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    for ext in (".ply", ".patch"):
+        if not os.path.exists(out + ext):
+            raise AssertionError(f"{tag}: missing output {out + ext}")
+    cloud = ply.read_ply(out + ".ply")["xyz"]
     if report["final_alive"] <= 0 or cloud.shape[0] != report["final_alive"]:
-        raise AssertionError(f"bad final cloud: {cloud.shape[0]} vs {report['final_alive']}")
-    if not (m["acc_mean"] <= ACC_MEAN_MAX and m["comp_frac"] >= COMP_FRAC_MIN):
-        raise AssertionError(f"quality below the bar: {m}")
-    return report, m, launches
+        raise AssertionError(f"{tag}: bad final cloud {cloud.shape[0]} vs "
+                             f"{report['final_alive']}")
+    return report, wall, launches, plane_quality(cloud)
+
+
+def engine_path(tag, dev, prefix, scene=None, **overrides):
+    """PMMVS through the Python API (the luma search has no CLI flag),
+    seed + run, with the launch counters reset just before and read
+    just after. Returns (engine, report, wall, launches, m)."""
+    import numpy as np
+    import torch
+
+    from mvskit_tpu_torch.config import MVSConfig
+    from mvskit_tpu_torch.ops import cuda_ncc
+    from mvskit_tpu_torch.pipeline.driver import PMMVS
+
+    cfg = MVSConfig.from_option_file(prefix)
+    for k, v in overrides.items():
+        setattr(cfg, k, v)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    cuda_ncc.reset_launches()
+    t0 = time.time()
+    engine = PMMVS(cfg, scene=scene, device=dev, log=lambda *a: None)
+    try:
+        engine.seed()
+        engine.run(write_snapshots=False)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        wall = time.time() - t0
+        launches = dict(cuda_ncc.LAUNCHES)
+        data = engine.collect()
+    finally:
+        engine.close()
+    report = dict(engine.report, peak_mem_gib=(
+        torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else None))
+    cloud = data["coord"][:, :3]
+    if cloud.shape[0] <= 0 or not np.isfinite(cloud).all():
+        raise AssertionError(f"{tag}: bad final cloud of {cloud.shape[0]} points")
+    return engine, report, wall, launches, plane_quality(cloud)
+
+
+def paths_phase(dev, workdir, n_views=16, width=640, height=480, n_seeds=4096,
+                cut=None):
+    """Phases 3-5. `cut` overrides MVSConfig fields to shrink the runs
+    for a rehearsal on the CPU (none on the card). Returns
+    {path: summary}."""
+    from mvskit_tpu_torch.utils import synthetic
+
+    size = dict(n_views=n_views, width=width, height=height, n_seeds=n_seeds)
+    cut = dict(cut or {})
+    flag = {"n_iterations": "iterations", "gauntlet_chunk": "chunk"}
+    small = [x for k, v in cut.items()
+             for x in ("--" + flag.get(k, k).replace("_", "-"), str(v))]
+    out = {}
+
+    # 3. RGB main path
+    plane = os.path.join(workdir, "plane16")
+    t0 = time.time()
+    synthetic.write_dataset(plane, **size)
+    log(f"[main] dataset written in {time.time() - t0:.2f} s")
+    report, wall, launches, m = cli_path("main", dev, plane, small)
+    out["rgb"] = summarize("main", report, wall, launches, m)
+
+    # 4. luma search, full depth, then a short ungrouped run
+    engine, report, wall, launches, m = engine_path(
+        "luma", dev, plane, luma_refine=True, **cut)
+    out["luma"] = summarize("luma", report, wall, launches, m)
+    short = dict(cut, n_iterations=1, prop_rounds=2)
+    _, report, wall, launches, m = engine_path(
+        "luma_ungrouped", dev, plane, scene=engine.scene, luma_refine=True,
+        refine_group_dma=False, **short)
+    out["luma_ungrouped"] = summarize("luma_ungrouped", report, wall, launches, m)
+    del engine
+
+    # 5. multi-illumination
+    il3 = os.path.join(workdir, "illum3")
+    t0 = time.time()
+    synthetic.write_dataset(il3, nillums=3, **size)
+    log(f"[illum3] dataset written in {time.time() - t0:.2f} s")
+    report, wall, launches, m = cli_path("illum3", dev, il3, small)
+    out["illum3"] = summarize("illum3", report, wall, launches, m)
+    out["illum3"]["n_illums"] = report["prop_params"]["n_illums"]
+    return out
+
+
+def check_paths(paths):
+    """The path checks of the card run: launches of each kernel on its
+    path, the illumination count, quality limits."""
+    rgb, luma, lu, il3 = (paths[k] for k in ("rgb", "luma", "luma_ungrouped", "illum3"))
+    if not (rgb["launches"]["ungrouped"] > 0 and rgb["launches"]["grouped"] > 0):
+        raise AssertionError(f"RGB main path missed a kernel: {rgb['launches']}")
+    if not (luma["launches"]["luma_grouped"] > 0 and luma["launches"]["grouped"] > 0):
+        raise AssertionError(f"luma path missed a kernel: {luma['launches']}")
+    if lu["launches"]["luma_ungrouped"] <= 0:
+        raise AssertionError(f"ungrouped luma run missed its kernel: {lu['launches']}")
+    if il3["n_illums"] != 3:
+        raise AssertionError(f"illum-3 path ran with n_illums {il3['n_illums']}")
+    if not (il3["launches"]["ungrouped"] > 0 and il3["launches"]["grouped"] > 0):
+        raise AssertionError(f"illum-3 path missed a kernel: {il3['launches']}")
+    check_quality("main", rgb["quality"], LIMITS["rgb"])
+    log(f"[main] round bar acc_mean {ACC_MEAN_BAR} (E2E_r05.json): "
+        f"{'met' if rgb['quality']['acc_mean'] <= ACC_MEAN_BAR else 'missed'}")
+    check_quality("luma", luma["quality"], LIMITS["luma"])
+    check_quality("illum3", il3["quality"], LIMITS["illum3"])
+    log(f"[luma] propagation {luma['propagate_s']:.3f} s vs RGB {rgb['propagate_s']:.3f} s "
+        f"(RGB / luma = {rgb['propagate_s'] / max(luma['propagate_s'], 1e-9):.3f}); "
+        f"wall {luma['wall_s']:.3f} s (engine) vs {rgb['wall_s']:.3f} s (cli)")
 
 
 def main() -> int:
@@ -284,19 +472,24 @@ def main() -> int:
     _build.load_library()
     log(f"[build] {lib} in {time.time() - t0:.2f} s")
 
+    t0 = time.time()
     records = kernel_phase(dev)
+    log(f"[kernel] phase {time.time() - t0:.2f} s")
     with tempfile.TemporaryDirectory(prefix="mvskit_smoke_") as work:
-        _, _, launches = main_path_phase(dev, work)
+        paths = paths_phase(dev, work)
+    check_paths(paths)
 
+    path_of = {"ungrouped": "rgb", "grouped": "rgb", "luma_grouped": "luma",
+               "luma_ungrouped": "luma_ungrouped"}
     kernels = []
-    for name, form in (("sample_windows_ungrouped", "ungrouped"),
-                       ("sample_windows_grouped", "grouped")):
+    for name, form, _, _ in KERNELS:
         r = records[name]
         kernels.append({
             "name": name, "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": REPLACES, "launches": launches[form],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"],
+            "replaces": REPLACES, "launches": paths[path_of[form]]["launches"][form],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
         })
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -29,25 +29,55 @@ def build_parser() -> argparse.ArgumentParser:
                         "filter stage (reference test_filter.cpp)")
     p.add_argument("--resume-iter", type=int, default=0,
                    help="checkpoint index ply/%%08d.patch to seed/resume from")
+    p.add_argument("--iterations", type=int, default=None,
+                   help="override number of outer iterations")
+    p.add_argument("--prop-rounds", type=int, default=None,
+                   help="override checkerboard rounds per iteration")
+    p.add_argument("--no-snapshots", action="store_true",
+                   help="skip intermediate PLY dumps")
     p.add_argument("--export-patch", action="store_true",
                    help="also write a final .patch checkpoint")
     p.add_argument("--out", default=None,
                    help="final output path prefix (default "
                         "<prefix>/ply/final_patches)")
+    p.add_argument("--max-patches", type=int, default=None,
+                   help="patch table capacity")
+    p.add_argument("--donor-budget", type=int, default=None,
+                   help="max donors per propagation phase")
+    p.add_argument("--chunk", type=int, default=None,
+                   help="gauntlet chunk size")
+    p.add_argument("--refine-rounds", type=int, default=None,
+                   help="random-search rounds per refinement")
+    p.add_argument("--refine-cands", type=int, default=None,
+                   help="candidates per refinement round")
     p.add_argument("--report", default=None,
                    help="write a JSON run report (stage seconds, alive "
                         "counts, filter kills) to this path")
     return p
 
 
+# flag -> MVSConfig field (the JAX CLI's overrides, cli.py:87-100)
+OVERRIDES = (
+    ("iterations", "n_iterations"),
+    ("prop_rounds", "prop_rounds"),
+    ("max_patches", "max_patches"),
+    ("donor_budget", "donor_budget"),
+    ("chunk", "gauntlet_chunk"),
+    ("refine_rounds", "refine_rounds"),
+    ("refine_cands", "refine_cands"),
+)
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
-    from mvskit_tpu.config import MVSConfig
-
+    from .config import MVSConfig
     from .pipeline.driver import PMMVS
 
     cfg = MVSConfig.from_option_file(args.prefix, args.option)
+    for flag, field in OVERRIDES:
+        if getattr(args, flag) is not None:
+            setattr(cfg, field, getattr(args, flag))
     print(cfg.summary(), file=sys.stderr)
 
     engine = PMMVS(cfg, device=args.device,
@@ -58,14 +88,15 @@ def main(argv=None) -> int:
         if args.filter_only:
             engine.filter()
         else:
-            engine.run()
+            engine.run(write_snapshots=not args.no_snapshots)
         engine.write_patches(out, export_ply=True, export_patch=args.export_patch)
     finally:
         engine.close()
     print(f"wrote {out}.ply", file=sys.stderr)
     if args.report:
         report = dict(engine.report, device=str(engine.device),
-                      final_alive=engine.table.n_alive())
+                      final_alive=engine.table.n_alive(),
+                      prop_params=engine.prop_params._asdict())
         with open(args.report, "w") as f:
             json.dump(report, f, indent=1)
     return 0

@@ -1,5 +1,6 @@
-// NCC window sampler for Hopper (sm_90a): raw bilinear RGB samples of a
-// wsize x wsize lattice per window, on the window's own pyramid level.
+// NCC window sampler for Hopper (sm_90a): raw bilinear RGB (or luma)
+// samples of a wsize x wsize lattice per window, on the window's own
+// pyramid level.
 //
 // Replaces: mvskit_tpu/ops/pallas_ncc.py::_make_kernel, launched by
 // sample_windows (rgb=True; group=1 and group=refine_cands). The TPU
@@ -34,6 +35,26 @@
 //     Members on another level, or taps outside the box, read global
 //     memory. Both forms run the same sample routine on the same values,
 //     so grouped output equals ungrouped output bit for bit.
+//
+// Luma form (K3): replaces the same kernel with rgb=False
+// (mvskit_tpu/ops/pallas_ncc.py:190, f32 luma planes, group=1 and
+// group=refine_cands). It reads the quad-packed luma planes
+// (Scene.planes_luma_quad: y00 | y10<<8 | y01<<16 | y11<<24 per pixel),
+// so one 4-byte load carries all four taps of a sample, and writes
+// out[b, s] = y00*dx0*dy0 + y10*dx1*dy0 + y01*dx0*dy1 + y11*dx1*dy1,
+// evaluated left to right with every operation rounded alone, as its
+// plain version (ops/sampling.py::sample_luma_quad) does. Bound on the
+// H100: the stores, 49 * 4 = 196 B out per window against 32 B of
+// window parameters in and one 4-byte tap load per sample (mostly L2
+// hits), so it is store-bound. Design answers:
+//   * ungrouped: one thread per (window, sample), as the RGB form;
+//   * grouped: one block per candidate group. A shared-memory box buys
+//     nothing here (one load per sample already, from L2; the RGB box
+//     lost to plain L2 reads), so the block instead stages the group's
+//     window parameters and level metadata in shared memory once and
+//     then writes the group's group * S outputs as one contiguous,
+//     coalesced run. Same sample routine, so it equals the ungrouped
+//     launch bit for bit.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -74,6 +95,11 @@ __device__ __forceinline__ float lattice(float t, float d1, float d2,
   return __fadd_rn(__fadd_rn(t, __fmul_rn(d1, i)), __fmul_rn(d2, j));
 }
 
+struct Frac {
+  int lx, ly;
+  float dx0, dx1, dy0, dy1;
+};
+
 struct Taps {
   int lx, ly;
   float f00, f10, f01, f11;
@@ -84,23 +110,32 @@ __device__ __forceinline__ float clamp01(float v) {
   return v != v ? v : fminf(fmaxf(v, 0.0f), 1.0f);
 }
 
-// the gather path's tap origin and weights
-__device__ __forceinline__ Taps bilinear_taps(float x, float y, int w, int h) {
-  Taps t;
+// the gather path's tap origin and fractions
+__device__ __forceinline__ Frac bilinear_frac(float x, float y, int w, int h) {
+  Frac f;
   int lx = __float2int_rz(x);  // saturating, NaN -> 0
   int ly = __float2int_rz(y);
   lx = min(max(lx, 0), w - 2);
   ly = min(max(ly, 0), h - 2);
-  float dx1 = clamp01(__fsub_rn(x, (float)lx));
-  float dy1 = clamp01(__fsub_rn(y, (float)ly));
-  float dx0 = __fsub_rn(1.0f, dx1);
-  float dy0 = __fsub_rn(1.0f, dy1);
-  t.lx = lx;
-  t.ly = ly;
-  t.f00 = __fmul_rn(dx0, dy0);
-  t.f10 = __fmul_rn(dx1, dy0);
-  t.f01 = __fmul_rn(dx0, dy1);
-  t.f11 = __fmul_rn(dx1, dy1);
+  f.lx = lx;
+  f.ly = ly;
+  f.dx1 = clamp01(__fsub_rn(x, (float)lx));
+  f.dy1 = clamp01(__fsub_rn(y, (float)ly));
+  f.dx0 = __fsub_rn(1.0f, f.dx1);
+  f.dy0 = __fsub_rn(1.0f, f.dy1);
+  return f;
+}
+
+// the gather path's tap origin and weights
+__device__ __forceinline__ Taps bilinear_taps(float x, float y, int w, int h) {
+  const Frac f = bilinear_frac(x, y, w, h);
+  Taps t;
+  t.lx = f.lx;
+  t.ly = f.ly;
+  t.f00 = __fmul_rn(f.dx0, f.dy0);
+  t.f10 = __fmul_rn(f.dx1, f.dy0);
+  t.f01 = __fmul_rn(f.dx0, f.dy1);
+  t.f11 = __fmul_rn(f.dx1, f.dy1);
   return t;
 }
 
@@ -272,6 +307,100 @@ sample_windows_grouped_kernel(const int* __restrict__ planes, LevelMeta meta,
   }
 }
 
+// ---------------------------------------------------------------------
+// luma form (K3)
+// ---------------------------------------------------------------------
+
+// one luma sample from its packed quad, in the plain version's order
+__device__ __forceinline__ float luma_sample(int v, const Frac& f) {
+  const float y00 = (float)(v & 0xFF);
+  const float y10 = (float)((v >> 8) & 0xFF);
+  const float y01 = (float)((v >> 16) & 0xFF);
+  const float y11 = (float)((v >> 24) & 0xFF);
+  float r = __fmul_rn(__fmul_rn(y00, f.dx0), f.dy0);
+  r = __fadd_rn(r, __fmul_rn(__fmul_rn(y10, f.dx1), f.dy0));
+  r = __fadd_rn(r, __fmul_rn(__fmul_rn(y01, f.dx0), f.dy1));
+  r = __fadd_rn(r, __fmul_rn(__fmul_rn(y11, f.dx1), f.dy1));
+  return r;
+}
+
+// sample s of a window whose plane base, level size and lattice are given
+__device__ __forceinline__ float luma_at(const int* __restrict__ base, int w,
+                                         int h, float tx, float ty, float dxx,
+                                         float dxy, float dyx, float dyy,
+                                         int s, int wsize) {
+  const float fi = (float)(s % wsize);
+  const float fj = (float)(s / wsize);
+  const float x = lattice(tx, dxx, dyx, fi, fj);
+  const float y = lattice(ty, dxy, dyy, fi, fj);
+  const Frac f = bilinear_frac(x, y, w, h);
+  return luma_sample(__ldg(base + f.ly * w + f.lx), f);
+}
+
+__global__ void __launch_bounds__(MVS_THREADS)
+sample_windows_luma_ungrouped_kernel(const int* __restrict__ planes,
+                                     LevelMeta meta, int total,
+                                     const int* __restrict__ img,
+                                     const int* __restrict__ lvl,
+                                     const float* __restrict__ tl,
+                                     const float* __restrict__ dx,
+                                     const float* __restrict__ dy,
+                                     float* __restrict__ out, int B,
+                                     int wsize) {
+  const int S = wsize * wsize;
+  int64_t gid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (gid >= (int64_t)B * S) return;
+  const int b = (int)(gid / S);
+  const int s = (int)(gid - (int64_t)b * S);
+  int off, w, h;
+  level_meta(meta, clamp_level(lvl[b], meta.n), off, w, h);
+  const int* base = planes + (int64_t)img[b] * total + off;
+  out[gid] = luma_at(base, w, h, tl[2 * b], tl[2 * b + 1], dx[2 * b],
+                     dx[2 * b + 1], dy[2 * b], dy[2 * b + 1], s, wsize);
+}
+
+__global__ void __launch_bounds__(MVS_THREADS)
+sample_windows_luma_grouped_kernel(const int* __restrict__ planes,
+                                   LevelMeta meta, int total,
+                                   const int* __restrict__ img,
+                                   const int* __restrict__ lvl,
+                                   const float* __restrict__ tl,
+                                   const float* __restrict__ dx,
+                                   const float* __restrict__ dy,
+                                   float* __restrict__ out, int wsize,
+                                   int group) {
+  // per member: plane base offset (in ints), level width and height,
+  // and the six lattice floats
+  __shared__ int64_t s_base[MVS_MAX_GROUP];
+  __shared__ int s_w[MVS_MAX_GROUP], s_h[MVS_MAX_GROUP];
+  __shared__ float s_lat[6][MVS_MAX_GROUP];
+
+  const int S = wsize * wsize;
+  const int b0 = blockIdx.x * group;
+  if (threadIdx.x < group) {
+    const int b = b0 + threadIdx.x;
+    int off, w, h;
+    level_meta(meta, clamp_level(lvl[b], meta.n), off, w, h);
+    s_base[threadIdx.x] = (int64_t)img[b] * total + off;
+    s_w[threadIdx.x] = w;
+    s_h[threadIdx.x] = h;
+    s_lat[0][threadIdx.x] = tl[2 * b];
+    s_lat[1][threadIdx.x] = tl[2 * b + 1];
+    s_lat[2][threadIdx.x] = dx[2 * b];
+    s_lat[3][threadIdx.x] = dx[2 * b + 1];
+    s_lat[4][threadIdx.x] = dy[2 * b];
+    s_lat[5][threadIdx.x] = dy[2 * b + 1];
+  }
+  __syncthreads();
+  float* gout = out + (int64_t)b0 * S;
+  for (int p = threadIdx.x; p < group * S; p += blockDim.x) {
+    const int m = p / S;
+    gout[p] = luma_at(planes + s_base[m], s_w[m], s_h[m], s_lat[0][m],
+                      s_lat[1][m], s_lat[2][m], s_lat[3][m], s_lat[4][m],
+                      s_lat[5][m], p - m * S, wsize);
+  }
+}
+
 static int make_meta(LevelMeta* meta, const int* off, const int* w,
                      const int* h, int n_levels) {
   if (n_levels < 1 || n_levels > MVS_MAX_LEVELS) return (int)cudaErrorInvalidValue;
@@ -322,6 +451,57 @@ extern "C" int mvs_sample_windows_grouped(
   if (B <= 0) return 0;
   sample_windows_grouped_kernel<<<B / group, MVS_THREADS, 0,
                                   (cudaStream_t)stream>>>(
+      (const int*)planes, meta, total, (const int*)img, (const int*)lvl,
+      (const float*)tl, (const float*)dx, (const float*)dy, (float*)out,
+      wsize, group);
+  return (int)cudaGetLastError();
+}
+
+// Ungrouped luma launch (K3, group=1): planes is the [n * I, total]
+// luma-quad buffer; out is [B, wsize^2]. Returns cudaGetLastError().
+extern "C" int mvs_sample_windows_luma_ungrouped(
+    const void* planes, int total, const int* lvl_off, const int* lvl_w,
+    const int* lvl_h, int n_levels, const void* img, const void* lvl,
+    const void* tl, const void* dx, const void* dy, void* out, int B,
+    int wsize, void* stream) {
+  LevelMeta meta;
+  int err = make_meta(&meta, lvl_off, lvl_w, lvl_h, n_levels);
+  if (err) return err;
+  if (B <= 0) return 0;
+  const int64_t n = (int64_t)B * wsize * wsize;
+  const int64_t blocks = (n + MVS_THREADS - 1) / MVS_THREADS;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  sample_windows_luma_ungrouped_kernel<<<(unsigned)blocks, MVS_THREADS, 0,
+                                         (cudaStream_t)stream>>>(
+      (const int*)planes, meta, total, (const int*)img, (const int*)lvl,
+      (const float*)tl, (const float*)dx, (const float*)dy, (float*)out, B,
+      wsize);
+  return (int)cudaGetLastError();
+}
+
+// Grouped luma launch (K3, group=refine_cands): B must be a multiple of
+// group, and group at most MVS_MAX_GROUP. The block size is the
+// multiple of 32 in [128, MVS_THREADS] that leaves the fewest idle
+// threads in the last pass over group * wsize^2 samples.
+extern "C" int mvs_sample_windows_luma_grouped(
+    const void* planes, int total, const int* lvl_off, const int* lvl_w,
+    const int* lvl_h, int n_levels, const void* img, const void* lvl,
+    const void* tl, const void* dx, const void* dy, void* out, int B,
+    int wsize, int group, void* stream) {
+  LevelMeta meta;
+  int err = make_meta(&meta, lvl_off, lvl_w, lvl_h, n_levels);
+  if (err) return err;
+  if (group < 2 || group > MVS_MAX_GROUP || B % group != 0)
+    return (int)cudaErrorInvalidValue;
+  if (B <= 0) return 0;
+  const int n = group * wsize * wsize;
+  int threads = MVS_THREADS, idle = INT_MAX;
+  for (int t = MVS_THREADS; t >= 128; t -= 32) {
+    const int w = (n + t - 1) / t * t - n;
+    if (w < idle) { idle = w; threads = t; }
+  }
+  sample_windows_luma_grouped_kernel<<<B / group, threads, 0,
+                                       (cudaStream_t)stream>>>(
       (const int*)planes, meta, total, (const int*)img, (const int*)lvl,
       (const float*)tl, (const float*)dx, (const float*)dy, (float*)out,
       wsize, group);

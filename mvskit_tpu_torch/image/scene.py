@@ -7,9 +7,11 @@ per-sample pyramid level is index arithmetic:
     planes[v, illum, offsets[l] + y * widths[l] + x, :]
 
 ``planes_packed`` holds the same pixels as ``r | g << 8 | b << 16``
-int32 (lossless: every level is u8-quantized). It is the operand of the
-CUDA window sampler, which reads it flat; the JAX package's
-(8,128)-padded per-level kernel planes have no counterpart here.
+int32 (lossless: every level is u8-quantized). ``planes_luma_quad``
+holds, per pixel, the u8 luminances of its 2x2 bilinear support packed
+into one int32. They are the operands of the CUDA window sampler's RGB
+and luma forms, which read them flat; the JAX package's (8,128)-padded
+per-level kernel planes have no counterpart here.
 """
 
 from __future__ import annotations
@@ -21,9 +23,8 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from mvskit_tpu.image import decode
-
 from ..geometry.camera import CameraSet, load_camera_set, make_camera_set
+from . import decode
 
 # ----------------------------------------------------------------------
 # pyramid construction (host side, numpy). level_dims, downsample_once,
@@ -158,6 +159,9 @@ class Scene:
 
     planes        [n, I, total, 3] f32 — flattened pyramids
     planes_packed [n, I, total] int32 — r | g << 8 | b << 16
+    planes_luma_quad [n, I, total] int32 — y00 | y10 << 8 | y01 << 16
+                  | y11 << 24, the luminances of each pixel's 2x2
+                  bilinear support (x+1 / y+1 clamped at level edges)
     masks         [n, total] f32 in {0, 255}, or None
     cams          CameraSet
     lvl_offsets / lvl_widths / lvl_heights [L] int32 device copies of
@@ -167,6 +171,7 @@ class Scene:
 
     planes: torch.Tensor
     planes_packed: torch.Tensor
+    planes_luma_quad: torch.Tensor
     masks: Optional[torch.Tensor]
     cams: CameraSet
     lvl_offsets: torch.Tensor
@@ -210,6 +215,33 @@ def pack_rgb(planes: np.ndarray) -> np.ndarray:
     )
 
 
+def pack_luma_quad(planes: np.ndarray, offsets: Sequence[int],
+                   widths: Sequence[int], heights: Sequence[int]) -> np.ndarray:
+    """[n, I, total, 3] u8-valued float planes -> [n, I, total] int32
+    luma quads (copied from mvskit_tpu/image/scene.py:304-322): luma =
+    clip(round(0.299 r + 0.587 g + 0.114 b), 0, 255); each pixel packs
+    y(x, y) | y(x+1, y) << 8 | y(x, y+1) << 16 | y(x+1, y+1) << 24 with
+    x+1 / y+1 clamped at its level's edge."""
+    n, n_illums = planes.shape[:2]
+    luma = np.clip(np.round(
+        0.299 * planes[..., 0] + 0.587 * planes[..., 1]
+        + 0.114 * planes[..., 2]
+    ), 0, 255).astype(np.int32)
+    lq = np.zeros_like(luma)
+    for o, wl, hl in zip(offsets, widths, heights):
+        lv = luma[..., o : o + wl * hl].reshape(n, n_illums, hl, wl)
+        xp = np.minimum(np.arange(wl) + 1, wl - 1)
+        yp = np.minimum(np.arange(hl) + 1, hl - 1)
+        q = (
+            lv
+            | (lv[..., :, xp] << 8)
+            | (lv[..., yp, :] << 16)
+            | (lv[..., yp, :][..., :, xp] << 24)
+        )
+        lq[..., o : o + wl * hl] = q.reshape(n, n_illums, -1)
+    return lq
+
+
 def scene_from_planes(
     planes: np.ndarray,
     planes_packed: np.ndarray,
@@ -220,16 +252,22 @@ def scene_from_planes(
     heights: Sequence[int],
     max_level: int,
     device,
+    planes_luma_quad: Optional[np.ndarray] = None,
 ) -> Scene:
-    """Copy host-built planes onto `device` as a Scene."""
+    """Copy host-built planes onto `device` as a Scene (the luma quads
+    are built from `planes` unless given)."""
     dev = torch.device(device)
 
     def i32(a):
         return torch.tensor(np.asarray(a, dtype=np.int32), device=dev)
 
+    if planes_luma_quad is None:
+        planes_luma_quad = pack_luma_quad(
+            np.asarray(planes, np.float32), offsets, widths, heights)
     return Scene(
         planes=torch.tensor(np.asarray(planes, np.float32), device=dev),
         planes_packed=i32(planes_packed),
+        planes_luma_quad=i32(planes_luma_quad),
         masks=None if masks is None else torch.tensor(
             np.asarray(masks, np.float32), device=dev
         ),

@@ -31,14 +31,17 @@ def scene_from_numpy(
     heights: Sequence[int],
     max_level: int,
     device="cpu",
+    planes_luma_quad: Optional[np.ndarray] = None,
 ) -> Scene:
     """A Scene from the JAX Scene's planes [n, I, total, 3],
     planes_packed [n, I, total], masks [n, total] (or None), the level-0
     projections P [n, 3, 4] (float64 as built, so the derived camera
-    quantities match) and the static level metadata."""
+    quantities match), the static level metadata and, optionally, its
+    planes_luma_quad [n, I, total] (else built from `planes`)."""
     cams = make_camera_set(np.asarray(P, np.float64), device)
     return scene_from_planes(planes, planes_packed, masks, cams, offsets,
-                             widths, heights, max_level, device)
+                             widths, heights, max_level, device,
+                             planes_luma_quad=planes_luma_quad)
 
 
 def table_from_numpy(fields: Dict[str, np.ndarray], device="cpu") -> PatchTable:

@@ -89,9 +89,10 @@ def load_library() -> ctypes.CDLL:
             ints = ctypes.POINTER(ctypes.c_int)
             common = [ptr, i32, ints, ints, ints, i32,
                       ptr, ptr, ptr, ptr, ptr, ptr, i32, i32]
-            lib.mvs_sample_windows_ungrouped.argtypes = common + [ptr]
-            lib.mvs_sample_windows_ungrouped.restype = i32
-            lib.mvs_sample_windows_grouped.argtypes = common + [i32, ptr]
-            lib.mvs_sample_windows_grouped.restype = i32
+            for form in ("", "luma_"):
+                ung = getattr(lib, f"mvs_sample_windows_{form}ungrouped")
+                ung.argtypes, ung.restype = common + [ptr], i32
+                grp = getattr(lib, f"mvs_sample_windows_{form}grouped")
+                grp.argtypes, grp.restype = common + [i32, ptr], i32
             _lib = lib
         return _lib

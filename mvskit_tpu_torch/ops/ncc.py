@@ -6,8 +6,10 @@ pyramid level), normalize it, and reduce to robust inverse-NCC scores
 (reference pmmvps/optim.cpp:790-948, 601-628, 630-706).
 
 Window tensors are windows-major, ``tex[T, B, L]`` with L = 3 * S lanes
-per (view, patch) row and channel c in lanes ``[c * S, (c + 1) * S)``:
-the literal row layout of the window sampler (``ops/cuda_ncc.py``).
+per (view, patch) row and channel c in lanes ``[c * S, (c + 1) * S)``
+(L = S for the luma search): the literal row layout of the window
+sampler (``ops/cuda_ncc.py``). With several illuminations, each one is
+sampled against the same window geometry and the scores are averaged.
 ``normalize_tex`` folds the 1/sqrt(C * S) mean factor into the values,
 so the dot of two normalized rows is the reference's mean NCC dot.
 """
@@ -186,6 +188,49 @@ def tex_dot(tex0, tex1):
     return (tex0 * tex1).sum(-1)
 
 
+def window_batch(scene: Scene, views, coord, normal, level: int, wsize: int,
+                 angle_threshold1: float):
+    """The window geometry of a [B, T] view list sharing per-patch plane
+    axes from the reference view views[:, 0] (optim.cpp:635-638).
+    views == -1 marks padding. It does not depend on the illumination.
+    Returns (idx, tl, dx2, dy2, new_level, valid), each [T, B, ...]."""
+    ref = views[:, 0].clamp(min=0).long()
+    pxaxis, pyaxis = cam.get_paxes(scene.cams, ref, coord, normal, level)
+    views_t = views.T.contiguous()  # [T, B]
+    tl, dx2, dy2, new_level, valid = window_geometry_views(
+        scene, views_t, coord, pxaxis, pyaxis, normal, level, wsize,
+        angle_threshold1,
+    )
+    return views_t.clamp(min=0), tl, dx2, dy2, new_level, valid & (views_t >= 0)
+
+
+def texs_for_views_illums(
+    scene: Scene,
+    views,
+    coord,
+    normal,
+    level: int,
+    wsize: int,
+    angle_threshold1: float,
+    illums,
+    luma: bool = False,
+    group: int = 1,
+):
+    """``texs_for_views`` for each illumination in `illums`: the window
+    geometry is computed once and the sampler runs once per
+    illumination. Returns a list of (tex[T, B, L], valid[T, B])."""
+    idx, tl, dx2, dy2, new_level, valid = window_batch(
+        scene, views, coord, normal, level, wsize, angle_threshold1,
+    )
+    out = []
+    for il in illums:
+        tex, fit, channels = sample_windows_raw(
+            scene, idx, tl, dx2, dy2, new_level, wsize, il, luma, group,
+        )
+        out.append((normalize_tex(tex, channels, wsize * wsize), valid & fit))
+    return out
+
+
 def texs_for_views(
     scene: Scene,
     views,
@@ -195,39 +240,31 @@ def texs_for_views(
     wsize: int,
     angle_threshold1: float,
     illum: int = 0,
+    luma: bool = False,
     group: int = 1,
 ):
-    """Normalized windows for a [B, T] view list sharing per-patch plane
-    axes from the reference view views[:, 0] (optim.cpp:635-638).
-    views == -1 marks padding. Returns (tex[T, B, 3 * S], valid[T, B]).
+    """Normalized windows for a [B, T] view list (see ``window_batch``).
+    Returns (tex[T, B, L], valid[T, B]) with L = 3 * S, or S with `luma`
+    (the luminance search of the opt-in luma_refine).
 
     group > 1 declares that every `group` consecutive rows are jittered
     candidates of one patch (same view rows): the sampler's grouped
-    form then serves each (candidate group, view) from one shared box."""
-    ref = views[:, 0].clamp(min=0).long()
-    pxaxis, pyaxis = cam.get_paxes(scene.cams, ref, coord, normal, level)
-    views_t = views.T.contiguous()  # [T, B]
-    idx = views_t.clamp(min=0)
-    tl, dx2, dy2, new_level, valid = window_geometry_views(
-        scene, views_t, coord, pxaxis, pyaxis, normal, level, wsize,
-        angle_threshold1,
-    )
-    tex, fit, channels = sample_windows_raw(
-        scene, idx, tl, dx2, dy2, new_level, wsize, illum, group,
-    )
-    valid = valid & (views_t >= 0) & fit
-    return normalize_tex(tex, channels, wsize * wsize), valid
+    form then serves each (candidate group, view) together."""
+    return texs_for_views_illums(
+        scene, views, coord, normal, level, wsize, angle_threshold1,
+        (illum,), luma, group,
+    )[0]
 
 
 def sample_windows_raw(
     scene: Scene, idx, tl, dx2, dy2, new_level, wsize: int, illum: int = 0,
-    group: int = 1,
+    luma: bool = False, group: int = 1,
 ):
     """The sampling half of getTex on a [T, B] pair batch: raw windows
     from the window sampler (a CUDA tensor launches the kernel, a CPU
-    tensor runs its plain version). Returns (tex[T, B, 3 * S],
-    fit[T, B], channels=3). The [T, B] -> flat order is T-major, so a
-    candidate group stays contiguous."""
+    tensor runs its plain version). Returns (tex[T, B, C * S],
+    fit[T, B], channels), C = 1 with `luma` else 3. The [T, B] -> flat
+    order is T-major, so a candidate group stays contiguous."""
     T, B = idx.shape
     out, fit = cuda_ncc.sample_windows(
         scene,
@@ -236,9 +273,9 @@ def sample_windows_raw(
         tl.reshape(-1, 2).contiguous(),
         dx2.reshape(-1, 2).contiguous(),
         dy2.reshape(-1, 2).contiguous(),
-        wsize, illum=illum, group=group,
+        wsize, illum=illum, group=group, luma=luma,
     )
-    return out.reshape(T, B, out.shape[-1]), fit.reshape(T, B), 3
+    return out.reshape(T, B, out.shape[-1]), fit.reshape(T, B), 1 if luma else 3
 
 
 def _off_ref(ok):
@@ -338,16 +375,36 @@ def compute_patch_ncc_n(
     scene: Scene, views, coord, normal, level: int, wsize: int, tau: int,
     angle_threshold1: float, n_illums: int = 1,
 ):
-    """compute_patch_ncc with the illumination count of the config;
-    multi-illumination scoring is not ported yet."""
-    if n_illums > 1:
-        raise NotImplementedError(
-            "multi-illumination scoring (nillums > 1 with use_illums) is "
-            "not ported to mvskit_tpu_torch yet (ROADMAP Queue 1 item 14)"
+    """compute_patch_ncc dispatching on the illumination count of the
+    config (JAX ncc.py:592-614)."""
+    if n_illums <= 1:
+        return compute_patch_ncc(
+            scene, views, coord, normal, level, wsize, tau, angle_threshold1
         )
-    return compute_patch_ncc(
+    return compute_patch_ncc_illums(
         scene, views, coord, normal, level, wsize, tau, angle_threshold1
     )
+
+
+def compute_patch_ncc_illums(
+    scene: Scene, views, coord, normal, level: int, wsize: int, tau: int,
+    angle_threshold1: float,
+):
+    """Multi-illumination NCC (JAX ncc.py:617-645): the weighted robust
+    INCC of each illumination against the same geometry, averaged over
+    the scene's illuminations. The geometry is computed once."""
+    v = views[:, :tau]
+    weights = compute_weights(scene, v, coord, normal, level)
+    nviews = (views >= 0).sum(1)
+    scores = []
+    for tex, valid in texs_for_views_illums(
+        scene, v, coord, normal, level, wsize, angle_threshold1,
+        range(scene.n_illums),
+    ):
+        s = incc_weighted(tex, valid, weights, robust=True)
+        scores.append(torch.where(nviews < 2, torch.full_like(s, 2.0), s))
+    score = sum(scores) / len(scores)
+    return 1.0 - unrobustincc(score)
 
 
 def compute_patch_ncc(

@@ -31,16 +31,20 @@ def _trunc_i32(x):
     return x.clamp(_I32_LO, _I32_HI).to(torch.int32)
 
 
-def _bilinear_setup(x, y, w, h):
-    """The gather path's tap origin and weights (sampling.py:87-96 of
-    the JAX package): lx = clamp(trunc(x), 0, w-2), fx = clamp(x - lx,
-    0, 1), likewise for y."""
+def _bilinear_frac(x, y, w, h):
+    """The gather path's tap origin and fractions (sampling.py:87-92 of
+    the JAX package): lx = clamp(trunc(x), 0, w-2), dx1 = clamp(x - lx,
+    0, 1), dx0 = 1 - dx1, likewise for y."""
     lx = torch.minimum(torch.clamp(_trunc_i32(x), min=0), w - 2)
     ly = torch.minimum(torch.clamp(_trunc_i32(y), min=0), h - 2)
     dx1 = torch.clamp(x - lx.to(x.dtype), 0.0, 1.0)
     dy1 = torch.clamp(y - ly.to(y.dtype), 0.0, 1.0)
-    dx0 = 1.0 - dx1
-    dy0 = 1.0 - dy1
+    return lx, ly, 1.0 - dx1, dx1, 1.0 - dy1, dy1
+
+
+def _bilinear_setup(x, y, w, h):
+    """Tap origin and the four tap weights f00, f10, f01, f11."""
+    lx, ly, dx0, dx1, dy0, dy1 = _bilinear_frac(x, y, w, h)
     return lx, ly, dx0 * dy0, dx1 * dy0, dx0 * dy1, dx1 * dy1
 
 
@@ -86,6 +90,29 @@ def sample_color_ch_packed(scene: Scene, image_idx, x, y, level, illum=0):
         g = g + ((v >> 8) & 0xFF).to(torch.float32) * wgt
         b = b + ((v >> 16) & 0xFF).to(torch.float32) * wgt
     return torch.stack([r, g, b], dim=0)
+
+
+def sample_luma_quad(scene: Scene, image_idx, x, y, level, illum=0):
+    """Bilinear luma fetch from the quad-packed planes (JAX
+    sampling.py:112-148): one int32 holds the four u8 luminances of a
+    pixel's 2x2 support, so one fetch yields a bilinear sample,
+    y00*dx0*dy0 + y10*dx1*dy0 + y01*dx0*dy1 + y11*dx1*dy1 evaluated left
+    to right. Returns the channel-leading [1, ...] layout."""
+    flat = scene.planes_luma_quad.reshape(-1)
+    ni, t = scene.planes_luma_quad.shape[1], scene.planes_luma_quad.shape[2]
+    off, w, h = _level_meta(scene, level)
+    lx, ly, dx0, dx1, dy0, dy1 = _bilinear_frac(x, y, w, h)
+    idx = (
+        (torch.as_tensor(image_idx, dtype=torch.int32, device=x.device) * ni
+         + illum) * t + off + ly * w + lx
+    ).long()
+    v = flat[idx]
+    y00 = (v & 0xFF).to(torch.float32)
+    y10 = ((v >> 8) & 0xFF).to(torch.float32)
+    y01 = ((v >> 16) & 0xFF).to(torch.float32)
+    y11 = ((v >> 24) & 0xFF).to(torch.float32)
+    out = y00 * dx0 * dy0 + y10 * dx1 * dy0 + y01 * dx0 * dy1 + y11 * dx1 * dy1
+    return out.unsqueeze(0)
 
 
 def sample_color(scene: Scene, image_idx, x, y, level, illum=0):

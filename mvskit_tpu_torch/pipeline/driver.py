@@ -20,13 +20,12 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from mvskit_tpu.config import MVSConfig
-from mvskit_tpu.io import patch_io, ply
-
+from ..config import MVSConfig
 from ..core import patches as pt
 from ..core.grid import pow2_limit
 from ..device import get_device
 from ..image.scene import Scene, load_scene
+from ..io import patch_io, ply
 from ..ops import sampling
 from . import filters as fl
 from . import propagate as pr
@@ -35,14 +34,12 @@ from . import seed as seedmod
 
 def check_supported(cfg: MVSConfig) -> None:
     """Raise NotImplementedError for options the port does not cover yet
-    (each names the ROADMAP item that ports it)."""
+    (each names the ROADMAP item that ports it), and ValueError for a
+    negative refine_rgb_tail with luma_refine (the JAX package's scan
+    breaks on it)."""
     unsupported = []
     if cfg.strategy != "pm_image":
         unsupported.append(f"strategy={cfg.strategy!r} (ROADMAP Queue 1 item 14)")
-    if cfg.luma_refine:
-        unsupported.append("luma_refine=True (ROADMAP Queue 1 item 14, Queue 2 K3)")
-    if cfg.nillums > 1 and cfg.use_illums:
-        unsupported.append("nillums > 1 with use_illums (ROADMAP Queue 1 item 14)")
     if cfg.refine_grad_steps > 0:
         unsupported.append("refine_grad_steps > 0 (retired; GRADPOLISH.json)")
     if cfg.mesh_dp * cfg.mesh_view * cfg.mesh_tile > 1:
@@ -50,6 +47,11 @@ def check_supported(cfg: MVSConfig) -> None:
     if unsupported:
         raise NotImplementedError(
             "not ported to mvskit_tpu_torch yet: " + "; ".join(unsupported)
+        )
+    if cfg.luma_refine and cfg.refine_rgb_tail < 0:
+        raise ValueError(
+            f"refine_rgb_tail must be >= 0 with luma_refine, got "
+            f"{cfg.refine_rgb_tail}"
         )
 
 
@@ -135,6 +137,9 @@ class PMMVS:
             neighbor_cand_cap=cfg.neighbor_cand_cap,
             group_dma=cfg.refine_group_dma,
             donor_policy=cfg.donor_policy,
+            luma_refine=cfg.luma_refine,
+            rgb_tail=cfg.refine_rgb_tail,
+            n_illums=self.scene.n_illums if cfg.use_illums else 1,
         )
 
     def _sync(self) -> None:

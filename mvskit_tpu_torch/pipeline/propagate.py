@@ -59,6 +59,12 @@ class PropagateParams(NamedTuple):
     neighbor_cand_cap: int = 1024
     group_dma: bool = True
     donor_policy: str = "cell_first"
+    luma_refine: bool = False
+    rgb_tail: int = 0
+    # multi-illumination scoring: when > 1, the gauntlet's NCC scores and
+    # the refinement objective average over the illuminations; view
+    # selection stays on illumination 0 (JAX propagate.py:68-73)
+    n_illums: int = 1
 
 
 class RoundStats(NamedTuple):
@@ -170,9 +176,9 @@ def generate_hypotheses(scene: Scene, table: PatchTable, grid: gridmod.GridState
     images = vw.compact_list(images, cell_ok)
     has_views = count_valid(images) > 0
 
-    ncc0 = nccops.compute_patch_ncc(
+    ncc0 = nccops.compute_patch_ncc_n(
         scene, images, coord, normal, p.level, p.wsize, p.tau,
-        p.angle_threshold1,
+        p.angle_threshold1, n_illums=p.n_illums,
     )
     worst = grid.slots[dimg, ty.clamp(0, gh - 1).long(),
                        tx.clamp(0, gw - 1).long(), p.cell_capacity - 1]
@@ -220,7 +226,8 @@ def run_gauntlet(scene, grid, table, coord, normal, images, ok_in, deltas,
         shrink=p.refine_shrink,
         init_depth_radius=p.refine_depth_radius,
         init_angle_radius=p.refine_angle_radius,
-        group_dma=p.group_dma,
+        group_dma=p.group_dma, luma=p.luma_refine, rgb_tail=p.rgb_tail,
+        n_illums=p.n_illums,
     )
 
     post_images, post_ok, _ = vw.post_process_core(
@@ -229,6 +236,7 @@ def run_gauntlet(scene, grid, table, coord, normal, images, ok_in, deltas,
         min_image_num=p.min_image_num, ncc_threshold=ncc_threshold,
         angle_threshold0=p.angle_threshold0,
         angle_threshold1=p.angle_threshold1,
+        n_illums=p.n_illums,
     )
     ok = ok_in & pre.ok & post_ok
     fail1 = ok_in & pre.ok & ~post_ok

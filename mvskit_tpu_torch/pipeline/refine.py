@@ -9,9 +9,14 @@ round is one batch through the window sampler; with ``group_dma`` the
 round's candidates of one patch form one group of the sampler's grouped
 form.
 
+With ``luma`` the first rounds search on luminance (the opt-in
+luma_refine) and the last ``rgb_tail`` rounds in RGB; with ``n_illums``
+> 1 every cost averages over the illuminations.
+
 The search noise is injected: ``deltas`` [rounds, B, n_cands, 3] holds
 uniform draws in [-1, 1), or, when absent, they are drawn from
-``generator``.
+``generator``. Round r uses deltas[r] in either mode, as the JAX
+package uses its r-th split key.
 """
 
 from __future__ import annotations
@@ -71,13 +76,17 @@ class RefineResult(NamedTuple):
 
 
 def _eval_cost(scene, views, coord, normal, minimum, level, wsize,
-               angle_threshold1, group=1):
-    """cost_func (optim.cpp:401-468)."""
-    tex, valid = nccops.texs_for_views(
-        scene, views, coord, normal, level, wsize, angle_threshold1,
-        group=group,
-    )
-    return nccops.incc_cost(tex, valid, minimum)
+               angle_threshold1, luma=False, group=1, n_illums=1):
+    """cost_func (optim.cpp:401-468), averaged over the illuminations
+    when n_illums > 1 (JAX refine.py:76-91)."""
+    costs = [
+        nccops.incc_cost(tex, valid, minimum)
+        for tex, valid in nccops.texs_for_views_illums(
+            scene, views, coord, normal, level, wsize, angle_threshold1,
+            range(max(n_illums, 1)), luma, group,
+        )
+    ]
+    return sum(costs) / len(costs)
 
 
 def draw_deltas(generator: torch.Generator, rounds: int, B: int,
@@ -108,6 +117,9 @@ def refine_batch(
     init_depth_radius: float,
     init_angle_radius: float,
     group_dma: bool = True,
+    luma: bool = False,
+    rgb_tail: int = 0,
+    n_illums: int = 1,
     generator: Optional[torch.Generator] = None,
 ) -> RefineResult:
     """Refine a batch of patches (Optim::refinePatch, optim.cpp:470-547).
@@ -115,8 +127,16 @@ def refine_batch(
     the reference view. Total cost evaluations per patch: rounds *
     n_cands; round 0's candidate 0 is the unperturbed start pose.
 
+    luma: the first rounds - rgb_tail rounds score luminance windows,
+    the last min(rgb_tail, rounds) rounds RGB (JAX refine.py:248-274).
+    The first RGB round after luma rounds re-anchors: best_c resets to
+    +inf and its candidate 0 is pinned to the incumbent pose. The final
+    score is always RGB. rgb_tail < 0 with luma raises ValueError.
+
     deltas: [rounds, B, n_cands, 3] uniform noise in [-1, 1), scaled by
     each round's radius; drawn from `generator` when None."""
+    if luma and rgb_tail < 0:
+        raise ValueError(f"rgb_tail must be >= 0 with luma, got {rgb_tail}")
     B = coord.shape[0]
     dev = coord.device
     ref = images[:, 0].clamp(min=0).long()
@@ -158,10 +178,15 @@ def refine_batch(
     ref_r, views_r, minimum_r = rep(ref), rep(views), rep(minimum)
     group = n_cands if group_dma else 1
     rows = torch.arange(B, device=dev)
+    n1 = rounds - (min(rgb_tail, rounds) if luma else 0)  # luma rounds
     for r in range(rounds):
+        if r == n1 and n1 > 0:
+            # first RGB round after the luma rounds: luma and RGB costs
+            # sit on different scales, so the search re-anchors
+            best_c = torch.full_like(best_c, float("inf"))
         delta = deltas[r].to(device=dev, dtype=torch.float32) * radius
-        if r == 0:
-            # round 0: candidate 0 is the unperturbed starting pose
+        if r == 0 or r == n1:
+            # a segment's first round: candidate 0 is the incumbent pose
             delta = delta.clone()
             delta[:, 0, :] = 0.0
         cand = best_p.unsqueeze(1) + delta
@@ -171,7 +196,7 @@ def refine_batch(
         n = decode_normal(scene, ref_r, flat[:, 1] * ascale, flat[:, 2] * ascale)
         costs = _eval_cost(
             scene, views_r, c, n, minimum_r, level, wsize, angle_threshold1,
-            group=group,
+            luma=luma and r < n1, group=group, n_illums=n_illums,
         ).reshape(B, n_cands)
         kbest = torch.argmin(costs, dim=1)
         cbest = costs[rows, kbest]
@@ -184,18 +209,22 @@ def refine_batch(
         c = decode_coord(center, ray, safe_dscale, p0[:, 0])
         n = decode_normal(scene, ref, p0[:, 1] * ascale, p0[:, 2] * ascale)
         best_c = _eval_cost(scene, views, c, n, minimum, level, wsize,
-                            angle_threshold1)
+                            angle_threshold1, luma=luma, n_illums=n_illums)
 
     out_coord = decode_coord(center, ray, safe_dscale, best_p[:, 0])
     out_normal = decode_normal(
         scene, ref, best_p[:, 1] * ascale, best_p[:, 2] * ascale
     )
     # final score: weighted robust INCC at the refined pose with the
-    # frozen weights (optim.cpp:539)
-    tex, valid = nccops.texs_for_views(
+    # frozen weights (optim.cpp:539), RGB always, averaged over the
+    # illuminations
+    scores = []
+    for tex, valid in nccops.texs_for_views_illums(
         scene, views, out_coord, out_normal, level, wsize, angle_threshold1,
-    )
-    score = nccops.incc_weighted(tex, valid, weights, robust=True)
-    score = torch.where(nimg < 2, torch.full_like(score, 2.0), score)
+        range(max(n_illums, 1)),
+    ):
+        s = nccops.incc_weighted(tex, valid, weights, robust=True)
+        scores.append(torch.where(nimg < 2, torch.full_like(s, 2.0), s))
+    score = sum(scores) / len(scores)
     out_ncc = 1.0 - nccops.unrobustincc(score)
     return RefineResult(out_coord, out_normal, out_ncc, best_c)

@@ -17,11 +17,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from mvskit_tpu.config import MVSConfig
-from mvskit_tpu.io import patch_io, ply
-
+from ..config import MVSConfig
 from ..core import patches as pt
 from ..image.scene import Scene
+from ..io import patch_io, ply
 from ..ops import ncc as nccops
 from . import views as vw
 

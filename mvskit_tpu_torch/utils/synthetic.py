@@ -1,33 +1,434 @@
 """Synthetic calibrated datasets for the port, free of jax.
 
-Reuses the numpy renderers of ``mvskit_tpu.utils.synthetic`` by import
-(that module imports only numpy at the top). ``write_dataset`` is the
-JAX package's writer with the port's ``rq_decompose``: the same
-signature and byte-identical files. ``plane_scene`` builds the Scene
-with the port's ``scene_from_arrays``.
+The numpy renderers (``procedural_texture`` ... ``sphere_cameras``, and
+``plane_points``) are a copy of ``mvskit_tpu/utils/synthetic.py``: same
+seeds, same outputs. ``write_dataset`` is the JAX package's writer with
+the same signature and byte-identical files. ``plane_scene`` and
+``sphere_scene`` build the Scene with the port's ``scene_from_arrays``.
 """
 
 from __future__ import annotations
 
+import math
 import os
+from typing import Tuple
 
 import numpy as np
 
-from mvskit_tpu.io import ply as plyio
-from mvskit_tpu.utils.synthetic import (
-    plane_points,
-    raytrace_view,
-    render_plane_views,
-    render_views,
-    ring_cameras,
-    sphere_cameras,
-    visible_surface_points,
-)
-
 from ..image.scene import scene_from_arrays
+from ..io import ply as plyio
 from ..pipeline.seed import rq_decompose
 
-__all__ = ["plane_points", "plane_scene", "ring_cameras", "write_dataset"]
+# ----------------------------------------------------------------------
+# copy of mvskit_tpu/utils/synthetic.py:19-406 and :554-568
+# ----------------------------------------------------------------------
+
+
+def procedural_texture(u, v, seed: int = 0, ncomp: int = 24):
+    """Smooth RGB texture on the plane. u, v arbitrary-shaped arrays.
+
+    Returns float in [0, 255] with shape u.shape + (3,)."""
+    rng = np.random.RandomState(seed)
+    freqs = rng.uniform(0.6, 6.0, size=(3, ncomp, 2))
+    phases = rng.uniform(0, 2 * math.pi, size=(3, ncomp))
+    amps = rng.uniform(0.3, 1.0, size=(3, ncomp))
+    amps /= amps.sum(axis=1, keepdims=True)
+    u = np.asarray(u, dtype=np.float64)
+    v = np.asarray(v, dtype=np.float64)
+    out = np.zeros(u.shape + (3,), dtype=np.float64)
+    for c in range(3):
+        acc = np.zeros_like(u)
+        for k in range(ncomp):
+            acc += amps[c, k] * np.sin(
+                freqs[c, k, 0] * u + freqs[c, k, 1] * v + phases[c, k]
+            )
+        out[..., c] = acc
+    return (out * 0.5 + 0.5) * 220.0 + 15.0
+
+
+def ring_cameras(
+    n_views: int,
+    width: int,
+    height: int,
+    focal: float = 600.0,
+    radius: float = 6.0,
+    elevation: float = 4.0,
+    target=(0.0, 0.0, 0.0),
+    arc: float = 0.6,
+) -> np.ndarray:
+    """Pinhole cameras on a ring above the z=0 plane, looking at target.
+
+    arc is the fraction of the full circle the ring covers (default the
+    historical partial arc). Returns P [n, 3, 4] float64."""
+    target = np.asarray(target, dtype=np.float64)
+    Ps = []
+    for i in range(n_views):
+        ang = 2 * math.pi * i / max(n_views, 1) * arc
+        C = np.array(
+            [radius * math.cos(ang), radius * math.sin(ang), elevation]
+        )
+        z = target - C
+        z /= np.linalg.norm(z)
+        up = np.array([0.0, 0.0, 1.0])
+        x = np.cross(z, up)
+        if np.linalg.norm(x) < 1e-8:
+            x = np.array([1.0, 0.0, 0.0])
+        x /= np.linalg.norm(x)
+        y = np.cross(z, x)
+        R = np.stack([x, y, z])  # world -> cam rows
+        t = -R @ C
+        K = np.array(
+            [
+                [focal, 0.0, width / 2.0],
+                [0.0, focal, height / 2.0],
+                [0.0, 0.0, 1.0],
+            ]
+        )
+        Ps.append(K @ np.concatenate([R, t[:, None]], axis=1))
+    return np.stack(Ps)
+
+
+def render_plane_views(
+    Ps: np.ndarray,
+    width: int,
+    height: int,
+    seed: int = 0,
+) -> np.ndarray:
+    """Render the textured z=0 plane into each view.
+
+    Returns uint8 [n, H, W, 3]. Pixels whose ray misses the plane in
+    front of the camera get mid-gray."""
+    n = Ps.shape[0]
+    out = np.zeros((n, height, width, 3), dtype=np.uint8)
+    xs, ys = np.meshgrid(np.arange(width), np.arange(height))
+    pix = np.stack([xs + 0.0, ys + 0.0, np.ones_like(xs, dtype=np.float64)], -1)
+    for i in range(n):
+        M = Ps[i][:, :3]
+        q = Ps[i][:, 3]
+        Minv = np.linalg.inv(M)
+        C = -Minv @ q
+        dirs = np.einsum("ij,hwj->hwi", Minv, pix)
+        t = -C[2] / dirs[..., 2]
+        pts = C[None, None, :] + t[..., None] * dirs
+        tex = procedural_texture(pts[..., 0], pts[..., 1], seed=seed)
+        good = (t > 0) & np.isfinite(t)
+        img = np.where(good[..., None], tex, 128.0)
+        out[i] = np.clip(np.floor(img + 0.5), 0, 255).astype(np.uint8)
+    return out
+
+
+# ----------------------------------------------------------------------
+# non-planar geometry: sphere resting on the plane (self-occlusion)
+# ----------------------------------------------------------------------
+# The flat plane exercises propagation/refinement but barely fires the
+# occlusion machinery (z-buffer visibility, filterOutside/filterExact) —
+# round-3 VERDICT weak spot 4. A sphere tangent to the plane at the
+# origin occludes a view-dependent patch of plane in every camera, so
+# the integrated depth-map/visibility logic has real work to do. The
+# reference was exercised on real scans (test/test.cpp:156); richer
+# synthetic geometry is this image's substitute (no datasets available).
+
+SPHERE_CENTER = (0.0, 0.0, 0.55)
+SPHERE_RADIUS = 0.55
+
+
+def procedural_texture3(p, seed: int = 0, ncomp: int = 24):
+    """Smooth RGB texture in 3-space (for curved surfaces). p: [..., 3].
+
+    Returns float in [0, 255] with shape p.shape[:-1] + (3,)."""
+    rng = np.random.RandomState(seed + 7)
+    # higher band than the plane texture: the sphere scene's steeper
+    # full-ring cameras need sub-0.1-unit texture detail for NCC to
+    # discriminate depth offsets at window scale
+    freqs = rng.uniform(2.0, 18.0, size=(3, ncomp, 3))
+    phases = rng.uniform(0, 2 * math.pi, size=(3, ncomp))
+    amps = rng.uniform(0.3, 1.0, size=(3, ncomp))
+    amps /= amps.sum(axis=1, keepdims=True)
+    p = np.asarray(p, dtype=np.float64)
+    out = np.zeros(p.shape[:-1] + (3,), dtype=np.float64)
+    for c in range(3):
+        acc = np.zeros(p.shape[:-1])
+        for k in range(ncomp):
+            acc += amps[c, k] * np.sin(
+                p[..., 0] * freqs[c, k, 0]
+                + p[..., 1] * freqs[c, k, 1]
+                + p[..., 2] * freqs[c, k, 2]
+                + phases[c, k]
+            )
+        out[..., c] = acc
+    return (out * 0.5 + 0.5) * 220.0 + 15.0
+
+
+def light_dirs(nillums: int) -> np.ndarray:
+    """Per-illumination light directions: illum 0 is overhead (identity
+    shading on the plane), the rest tilt 35 deg around the azimuth ring
+    — the photometric-stereo capture geometry the reference's
+    image/%04d%04d contract encodes (image/photo.hpp:25-30)."""
+    dirs = [np.array([0.0, 0.0, 1.0])]
+    theta = math.radians(35.0)
+    for b in range(1, nillums):
+        phi = 2 * math.pi * (b - 1) / max(nillums - 1, 1)
+        dirs.append(
+            np.array(
+                [
+                    math.sin(theta) * math.cos(phi),
+                    math.sin(theta) * math.sin(phi),
+                    math.cos(theta),
+                ]
+            )
+        )
+    return np.stack(dirs[:nillums])
+
+
+def raytrace_view(
+    P: np.ndarray,
+    width: int,
+    height: int,
+    sphere: bool = True,
+    center=SPHERE_CENTER,
+    radius: float = SPHERE_RADIUS,
+):
+    """Trace every pixel ray of one view against plane z=0 (+ sphere).
+
+    Returns (pts[H, W, 3], normal[H, W, 3], hit[H, W], on_sphere[H, W]).
+    """
+    S = np.asarray(center, dtype=np.float64)
+    xs, ys = np.meshgrid(np.arange(width), np.arange(height))
+    pix = np.stack(
+        [xs + 0.0, ys + 0.0, np.ones_like(xs, dtype=np.float64)], -1
+    )
+    M = P[:, :3]
+    q = P[:, 3]
+    Minv = np.linalg.inv(M)
+    C = -Minv @ q
+    d = np.einsum("ij,hwj->hwi", Minv, pix)
+
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t_pl = -C[2] / d[..., 2]
+    ok_pl = (t_pl > 1e-9) & np.isfinite(t_pl)
+
+    if sphere:
+        oc = C - S
+        a = np.sum(d * d, axis=-1)
+        b = 2.0 * np.einsum("hwi,i->hw", d, oc)
+        c = float(oc @ oc - radius * radius)
+        disc = b * b - 4.0 * a * c
+        sq = np.sqrt(np.maximum(disc, 0.0))
+        t0 = (-b - sq) / (2.0 * a)
+        t1 = (-b + sq) / (2.0 * a)
+        t_sp = np.where(t0 > 1e-9, t0, t1)
+        ok_sp = (disc >= 0.0) & (t_sp > 1e-9)
+    else:
+        t_sp = np.full_like(t_pl, np.inf)
+        ok_sp = np.zeros_like(ok_pl)
+
+    t_pl_eff = np.where(ok_pl, t_pl, np.inf)
+    t_sp_eff = np.where(ok_sp, t_sp, np.inf)
+    on_sphere = ok_sp & (t_sp_eff < t_pl_eff)
+    t = np.where(on_sphere, t_sp, t_pl)
+    hit = ok_pl | ok_sp
+    pts = C[None, None, :] + t[..., None] * d
+    n_sp = (pts - S) / radius
+    normal = np.where(
+        on_sphere[..., None], n_sp, np.array([0.0, 0.0, 1.0])
+    )
+    return pts, normal, hit, on_sphere
+
+
+def render_views(
+    Ps: np.ndarray,
+    width: int,
+    height: int,
+    geometry: str = "plane",
+    seed: int = 0,
+    nillums: int = 1,
+    center=SPHERE_CENTER,
+    radius: float = SPHERE_RADIUS,
+) -> np.ndarray:
+    """Render the scene into each view x illumination.
+
+    geometry: "plane" (z=0 only; byte-identical to render_plane_views
+    at nillums=1) or "sphere" (sphere-on-plane with self-occlusion).
+    Illumination b shades lambertian against light_dirs()[b] with an
+    ambient floor, times a smooth per-illum spatial gain field (b=0 has
+    unit gain and an overhead light — the no-illum-variation baseline).
+    Returns uint8 [n_views, nillums, H, W, 3]."""
+    n = Ps.shape[0]
+    if geometry == "plane" and nillums == 1:
+        return render_plane_views(Ps, width, height, seed=seed)[:, None]
+    sphere = geometry == "sphere"
+    lights = light_dirs(nillums)
+    rng = np.random.RandomState(seed + 100)
+    gain_w = rng.uniform(0.6, 1.8, size=(nillums, 3))
+    gain_p = rng.uniform(0, 2 * math.pi, size=(nillums,))
+    out = np.zeros((n, nillums, height, width, 3), dtype=np.uint8)
+    for i in range(n):
+        pts, normal, hit, on_sphere = raytrace_view(
+            Ps[i], width, height, sphere=sphere, center=center,
+            radius=radius,
+        )
+        if sphere:
+            tex = procedural_texture3(pts, seed=seed)
+        else:
+            tex = procedural_texture(pts[..., 0], pts[..., 1], seed=seed)
+        for b in range(nillums):
+            lam = 0.35 + 0.65 * np.maximum(
+                0.0, np.einsum("hwi,i->hw", normal, lights[b])
+            )
+            if b == 0:
+                gain = 1.0
+            else:
+                gain = 0.8 + 0.2 * np.sin(
+                    pts[..., 0] * gain_w[b, 0]
+                    + pts[..., 1] * gain_w[b, 1]
+                    + pts[..., 2] * gain_w[b, 2]
+                    + gain_p[b]
+                )
+            img = np.where(
+                hit[..., None], tex * (lam * gain)[..., None], 128.0
+            )
+            out[i, b] = np.clip(np.floor(img + 0.5), 0, 255).astype(
+                np.uint8
+            )
+    return out
+
+
+def surface_distance(
+    pts: np.ndarray, geometry: str = "sphere",
+    center=SPHERE_CENTER, radius: float = SPHERE_RADIUS,
+) -> np.ndarray:
+    """Exact distance of each point to the analytic surface (plane z=0
+    union the sphere, when geometry='sphere')."""
+    d_pl = np.abs(pts[:, 2])
+    if geometry != "sphere":
+        return d_pl
+    S = np.asarray(center)
+    d_sp = np.abs(
+        np.linalg.norm(pts[:, :3] - S[None, :], axis=1) - radius
+    )
+    return np.minimum(d_pl, d_sp)
+
+
+def _segment_hits_sphere(C, pts, center, radius) -> np.ndarray:
+    """True where the open segment camera C -> point is blocked by the
+    sphere (endpoint contact excluded)."""
+    S = np.asarray(center, dtype=np.float64)
+    d = pts - C[None, :]
+    L = np.linalg.norm(d, axis=1)
+    dn = d / np.maximum(L, 1e-12)[:, None]
+    oc = C - S
+    b = dn @ oc
+    c = float(oc @ oc - radius * radius)
+    disc = b * b - c
+    sq = np.sqrt(np.maximum(disc, 0.0))
+    t0 = -b - sq
+    return (disc > 0.0) & (t0 > 1e-6) & (t0 < L - 1e-4)
+
+
+def visible_surface_points(
+    Ps: np.ndarray,
+    n_points: int,
+    geometry: str = "sphere",
+    seed: int = 2,
+    extent: float = 1.2,
+    center=SPHERE_CENTER,
+    radius: float = SPHERE_RADIUS,
+    min_vis: int = 2,
+    sphere_frac: float = 0.4,
+    width: int = 160,
+    height: int = 120,
+    min_facing: float = 0.5,
+):
+    """Ground-truth surface samples visible in >= min_vis views —
+    unoccluded, in front of the camera, inside the image, and facing
+    the camera within the engine's 60-deg window gate (min_facing =
+    cos 60; reference optim.cpp:180/797). The completeness reference
+    set for the occluding scene. Returns (coord[N, 4], normal[N, 4]);
+    N <= n_points after the visibility cut."""
+    rng = np.random.RandomState(seed)
+    S = np.asarray(center, dtype=np.float64)
+    n_sp = int(n_points * sphere_frac) if geometry == "sphere" else 0
+    n_pl = n_points - n_sp
+
+    pl = rng.uniform(-extent, extent, size=(n_pl, 2))
+    pts_pl = np.concatenate([pl, np.zeros((n_pl, 1))], axis=1)
+    nrm_pl = np.tile(np.array([[0.0, 0.0, 1.0]]), (n_pl, 1))
+    if geometry == "sphere":
+        # drop plane samples inside the tangent disc (surface is sphere
+        # there in every practical view)
+        keep = np.linalg.norm(pl, axis=1) > radius * 0.25
+        pts_pl, nrm_pl = pts_pl[keep], nrm_pl[keep]
+        v = rng.normal(size=(n_sp, 3))
+        v /= np.linalg.norm(v, axis=1, keepdims=True)
+        pts_sp = S[None, :] + SPHERE_RADIUS * v
+        keep = pts_sp[:, 2] > 0.05  # above the plane contact region
+        pts_sp = pts_sp[keep]
+        nrm_sp = (pts_sp - S[None, :]) / radius
+        pts = np.concatenate([pts_pl, pts_sp])
+        nrm = np.concatenate([nrm_pl, nrm_sp])
+    else:
+        pts, nrm = pts_pl, nrm_pl
+
+    vis = np.zeros(pts.shape[0], dtype=np.int64)
+    for i in range(Ps.shape[0]):
+        M = Ps[i][:, :3]
+        q = Ps[i][:, 3]
+        C = -np.linalg.inv(M) @ q
+        ic = pts @ M.T + q[None, :]
+        z = ic[:, 2]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            x = ic[:, 0] / z
+            y = ic[:, 1] / z
+        ok = (z > 0) & np.isfinite(x)
+        ok &= (x >= 4) & (x < width - 4) & (y >= 4) & (y < height - 4)
+        # facing the camera within the NCC window angle gate
+        to_cam = C[None, :] - pts
+        to_cam = to_cam / np.maximum(
+            np.linalg.norm(to_cam, axis=1, keepdims=True), 1e-12
+        )
+        ok &= np.einsum("nj,nj->n", to_cam, nrm) > min_facing
+        if geometry == "sphere":
+            ok &= ~_segment_hits_sphere(C, pts, center, radius)
+        vis += ok.astype(np.int64)
+    keep = vis >= min_vis
+    coord = np.concatenate(
+        [pts[keep], np.ones((int(keep.sum()), 1))], axis=1
+    )
+    normal = np.concatenate(
+        [nrm[keep], np.zeros((int(keep.sum()), 1))], axis=1
+    )
+    return coord, normal
+
+
+def sphere_cameras(
+    n_views: int, width: int, height: int, focal: float = 600.0
+) -> np.ndarray:
+    """Camera ring for the occluding scene: full circle (so each view
+    occludes a different patch of plane behind the sphere) and steeper
+    elevation (viewing angle ~42 deg from the plane normal — the
+    default ring sits at ~56 deg, right against the 60 deg angle gate
+    of optim.cpp:180)."""
+    return ring_cameras(
+        n_views, width, height, focal=focal,
+        radius=5.5, elevation=5.0, arc=1.0,
+    )
+
+
+def plane_points(
+    Ps: np.ndarray, n_points: int, seed: int = 1, extent: float = 1.5
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Random ground-truth surface points + normals on the z=0 plane,
+    restricted to the region all cameras see. Returns (coord[N,4],
+    normal[N,4]) with the plane normal pointing up (toward cameras)."""
+    rng = np.random.RandomState(seed)
+    pts = rng.uniform(-extent, extent, size=(n_points, 2))
+    coord = np.concatenate(
+        [pts, np.zeros((n_points, 1)), np.ones((n_points, 1))], axis=1
+    )
+    normal = np.tile(
+        np.array([[0.0, 0.0, 1.0, 0.0]]), (n_points, 1)
+    )
+    return coord, normal
 
 
 def plane_scene(
@@ -42,6 +443,26 @@ def plane_scene(
     """Cameras + rendered images of the textured z = 0 plane + Scene."""
     Ps = ring_cameras(n_views, width, height, focal=focal)
     imgs = render_plane_views(Ps, width, height, seed=seed)
+    scene = scene_from_arrays(Ps, list(imgs), max_level=max_level, device=device)
+    return Ps, imgs, scene
+
+
+def sphere_scene(
+    n_views: int = 8,
+    width: int = 160,
+    height: int = 120,
+    max_level: int = 4,
+    seed: int = 0,
+    focal: float = 600.0,
+    nillums: int = 1,
+    device="cuda",
+):
+    """Cameras + rendered sphere-on-plane images (view x illumination)
+    + Scene."""
+    Ps = sphere_cameras(n_views, width, height, focal=focal)
+    imgs = render_views(
+        Ps, width, height, geometry="sphere", seed=seed, nillums=nillums
+    )
     scene = scene_from_arrays(Ps, list(imgs), max_level=max_level, device=device)
     return Ps, imgs, scene
 

@@ -5,9 +5,10 @@ conftest:
 
     python -m pytest --noconftest -q -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerances: the kernel equals its plain version (same arithmetic, each
-operation rounded alone) — checked to 1e-3 on the 0-255 scale, the
-bound chip_smoke.py also states; grouped equals ungrouped bit for bit.
+Tolerances: the RGB kernel equals its plain version (same arithmetic,
+each operation rounded alone) — checked to 1e-3 on the 0-255 scale, the
+bound chip_smoke.py also states; the luma kernel equals its plain
+version bit for bit; grouped equals ungrouped bit for bit.
 The pipeline on the card against the same pipeline on the CPU, fed the
 same random numbers: alive counts within 3 % (reductions sum in another
 order on the card, which can flip a near-tie accept/reject)."""
@@ -64,15 +65,67 @@ def test_kernel_forms_match_plain(card):
     odd, _ = cuda_ncc.sample_windows(scene, *(a[:-1] for a in args), WSIZE, group=32)
     torch.cuda.synchronize()
     plain = cuda_ncc.sample_windows_plain(scene, *args, WSIZE)
-    assert cuda_ncc.LAUNCHES == {"ungrouped": 2, "grouped": 1}
+    assert cuda_ncc.LAUNCHES == {"ungrouped": 2, "grouped": 1,
+                                 "luma_ungrouped": 0, "luma_grouped": 0}
     assert fit.all()
     assert (ung - plain).abs().max().item() <= 1e-3
     assert torch.equal(ung.view(torch.int32), grp.view(torch.int32))
     assert torch.equal(odd.view(torch.int32), ung[:-1].view(torch.int32))
 
 
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+def test_luma_kernel_forms_match_plain_bitwise(card):
+    from mvskit_tpu_torch.ops import cuda_ncc
+    from mvskit_tpu_torch.utils import synthetic
+
+    _, _, scene = synthetic.plane_scene(n_views=6, width=160, height=120, device=card)
+    args = _windows(scene)
+    cuda_ncc.reset_launches()
+    ung, fit = cuda_ncc.sample_windows(scene, *args, WSIZE, group=1, luma=True)
+    grp, _ = cuda_ncc.sample_windows(scene, *args, WSIZE, group=32, luma=True)
+    odd, _ = cuda_ncc.sample_windows(scene, *(a[:-1] for a in args), WSIZE, group=32,
+                                     luma=True)
+    torch.cuda.synchronize()
+    plain = cuda_ncc.sample_windows_luma_plain(scene, *args, WSIZE)
+    assert cuda_ncc.LAUNCHES == {"ungrouped": 0, "grouped": 0,
+                                 "luma_ungrouped": 2, "luma_grouped": 1}
+    assert fit.all() and ung.shape == (args[0].shape[0], WSIZE * WSIZE)
+    assert torch.equal(_bits(ung), _bits(plain))
+    assert torch.equal(_bits(grp), _bits(ung))
+    assert torch.equal(_bits(odd), _bits(ung[:-1]))
+
+
+def test_kernels_read_the_asked_illumination(card):
+    """On a 3-illumination scene, illum = 2 reads illumination 2's
+    planes: equal to the plain version at illum 2, different from
+    illum 0, in both the RGB and the luma forms."""
+    from mvskit_tpu_torch.ops import cuda_ncc
+    from mvskit_tpu_torch.utils import synthetic
+
+    _, _, scene = synthetic.sphere_scene(n_views=6, width=160, height=120, nillums=3,
+                                         device=card)
+    args = _windows(scene)
+    for luma, plain_fn in ((False, cuda_ncc.sample_windows_plain),
+                           (True, cuda_ncc.sample_windows_luma_plain)):
+        outs = {}
+        for il in (0, 2):
+            for group in (1, 32):
+                outs[il, group], _ = cuda_ncc.sample_windows(
+                    scene, *args, WSIZE, illum=il, group=group, luma=luma)
+        torch.cuda.synchronize()
+        p2 = plain_fn(scene, *args, WSIZE, illum=2)
+        assert (outs[2, 1] - p2).abs().max().item() <= (0.0 if luma else 1e-3)
+        assert torch.equal(_bits(outs[2, 32]), _bits(outs[2, 1]))
+        assert (outs[2, 1] - outs[0, 1]).abs().max().item() > 1.0
+    with pytest.raises(ValueError):
+        cuda_ncc.sample_windows(scene, *args, WSIZE, illum=3)
+
+
 def test_pipeline_on_card_tracks_cpu(card, tmp_path):
-    from mvskit_tpu.config import MVSConfig
+    from mvskit_tpu_torch.config import MVSConfig
     from mvskit_tpu_torch.ops import cuda_ncc
     from mvskit_tpu_torch.pipeline.driver import PMMVS
     from mvskit_tpu_torch.pipeline.propagate import TorchNoise
@@ -93,6 +146,6 @@ def test_pipeline_on_card_tracks_cpu(card, tmp_path):
         e.close()
         alive[dev] = e.report["alive_per_iter"]
         if dev == "cuda":
-            assert min(cuda_ncc.LAUNCHES.values()) > 0
+            assert cuda_ncc.LAUNCHES["ungrouped"] > 0 and cuda_ncc.LAUNCHES["grouped"] > 0
     for a, b in zip(alive["cpu"], alive["cuda"]):
         assert abs(a - b) <= 0.03 * a, alive

@@ -1,7 +1,10 @@
-"""The port imports without jax: every submodule of mvskit_tpu_torch and
-the CLI's --help run in a subprocess where `import jax` fails. Also the
-explicit device helper and the unported options' NotImplementedError."""
+"""The port stands alone: every submodule of mvskit_tpu_torch and the
+CLI's --help run in a subprocess where `import jax` fails, and neither
+the port nor chip_smoke.py imports any module of mvskit_tpu. Also the
+explicit device helper, the unported options' NotImplementedError and
+the options this port covers."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -27,7 +30,8 @@ def test_import_all_submodules_without_jax():
         "import importlib, pkgutil, mvskit_tpu_torch as m\n"
         "names = [i.name for i in pkgutil.walk_packages(m.__path__, m.__name__ + '.')]\n"
         "[importlib.import_module(n) for n in names]\n"
-        "assert any(k.startswith('mvskit_tpu.') for k in sys.modules)\n"
+        "assert not [k for k in sys.modules\n"
+        "            if k == 'mvskit_tpu' or k.startswith('mvskit_tpu.')]\n"
         "assert sys.modules['jax'] is None\n"
         "print(len(names))\n"
     )
@@ -45,6 +49,45 @@ def test_cli_help_without_jax():
     assert res.returncode == 0, res.stderr[-3000:]
     assert "--device" in res.stdout and "--filter-only" in res.stdout
     assert "--mesh" not in res.stdout
+    for flag in ("--iterations", "--prop-rounds", "--no-snapshots", "--max-patches",
+                 "--donor-budget", "--chunk", "--refine-rounds", "--refine-cands"):
+        assert flag in res.stdout, flag
+
+
+def _imported_modules(path):
+    """Every module named by an import statement of the file at `path`
+    (absolute names; relative imports resolved against `package`)."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    rel = os.path.relpath(path, REPO)[:-3].split(os.sep)
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level:
+                base = rel[:len(rel) - node.level]
+                names.append(".".join(base + ([node.module] if node.module else [])))
+            else:
+                names.append(node.module)
+    return names
+
+
+def _is_jax_package(name):
+    return name == "mvskit_tpu" or name.startswith("mvskit_tpu.")
+
+
+def test_no_import_of_the_jax_package():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for d, _, fs in os.walk(os.path.join(REPO, "mvskit_tpu_torch")):
+        files += [os.path.join(d, f) for f in fs if f.endswith(".py")]
+    assert len(files) >= 30
+    bad = {os.path.relpath(f, REPO): [n for n in _imported_modules(f) if _is_jax_package(n)]
+           for f in files}
+    assert not {k: v for k, v in bad.items() if v}
+    # chip_smoke.py drives the port's modules
+    assert any(n.startswith("mvskit_tpu_torch")
+               for n in _imported_modules(os.path.join(REPO, "chip_smoke.py")))
 
 
 def test_get_device_is_explicit():
@@ -62,13 +105,11 @@ def test_get_device_is_explicit():
 
 @pytest.mark.parametrize("field,value", [
     ("strategy", "pmvs"),
-    ("luma_refine", True),
     ("refine_grad_steps", 2),
     ("mesh_view", 2),
-    ("nillums", 2),
 ])
 def test_unported_options_raise(field, value):
-    from mvskit_tpu.config import MVSConfig
+    from mvskit_tpu_torch.config import MVSConfig
     from mvskit_tpu_torch.pipeline.driver import check_supported
 
     cfg = MVSConfig(images=list(range(4)))
@@ -76,3 +117,16 @@ def test_unported_options_raise(field, value):
     setattr(cfg, field, value)
     with pytest.raises(NotImplementedError, match="ROADMAP|retired"):
         check_supported(cfg)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("luma_refine", True),
+    ("nillums", 3),
+])
+def test_ported_options_accepted(field, value):
+    from mvskit_tpu_torch.config import MVSConfig
+    from mvskit_tpu_torch.pipeline.driver import check_supported
+
+    cfg = MVSConfig(images=list(range(4)))
+    setattr(cfg, field, value)
+    check_supported(cfg)

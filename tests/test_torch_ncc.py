@@ -209,7 +209,8 @@ def test_wrapper_checks_and_counts_no_cpu_launch(scenes):
     cuda_ncc.reset_launches()
     out, fit = cuda_ncc.sample_windows(ts, idx, lvl, tl, d, d.flip(1).contiguous(), WSIZE)
     assert out.shape == (B, 3 * S) and fit.all()
-    assert cuda_ncc.LAUNCHES == {"ungrouped": 0, "grouped": 0}
+    assert cuda_ncc.LAUNCHES == {"ungrouped": 0, "grouped": 0,
+                                 "luma_ungrouped": 0, "luma_grouped": 0}
     with pytest.raises(TypeError):
         cuda_ncc.sample_windows(ts, idx.long(), lvl, tl, d, d, WSIZE)
     with pytest.raises(ValueError):

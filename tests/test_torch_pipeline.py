@@ -14,11 +14,12 @@ import os
 import numpy as np
 import pytest
 
-from mvskit_tpu.config import MVSConfig
+from mvskit_tpu.config import MVSConfig as JMVSConfig
 from mvskit_tpu.pipeline.driver import PMMVS as JPMMVS
 from mvskit_tpu.utils import metrics
 from mvskit_tpu.utils import synthetic as jsyn
 from mvskit_tpu_torch import cli
+from mvskit_tpu_torch.config import MVSConfig as TMVSConfig
 from mvskit_tpu_torch.ops import cuda_ncc
 from mvskit_tpu_torch.pipeline.driver import PMMVS as TPMMVS
 from torch_replay import JaxReplayNoise
@@ -26,8 +27,9 @@ from torch_replay import JaxReplayNoise
 ITERS = 2
 
 
-def small_cfg(prefix):
-    cfg = MVSConfig.from_option_file(prefix)
+def small_cfg(prefix, config_cls=TMVSConfig):
+    """The test size, in the JAX package's MVSConfig or the port's."""
+    cfg = config_cls.from_option_file(prefix)
     cfg.max_patches = 4096
     cfg.donor_budget = 512
     cfg.gauntlet_chunk = 256
@@ -51,7 +53,7 @@ def runs(tmp_path_factory):
     jsyn.write_dataset(prefix, n_views=6, width=160, height=120, n_seeds=48)
     out = {"prefix": prefix}
     engines = (
-        ("jax", lambda: JPMMVS(small_cfg(prefix), log=lambda *a: None)),
+        ("jax", lambda: JPMMVS(small_cfg(prefix, JMVSConfig), log=lambda *a: None)),
         ("torch", lambda: TPMMVS(small_cfg(prefix), device="cpu",
                                  noise=JaxReplayNoise(0), log=lambda *a: None)),
     )
@@ -87,7 +89,8 @@ def test_quality_tracks_jax(runs):
 
 def test_seeds_match_exactly(runs):
     prefix = runs["prefix"]
-    j = JPMMVS(small_cfg(prefix), scene=runs["jax"]["engine"].scene, log=lambda *a: None)
+    j = JPMMVS(small_cfg(prefix, JMVSConfig), scene=runs["jax"]["engine"].scene,
+               log=lambda *a: None)
     t = TPMMVS(small_cfg(prefix), scene=runs["torch"]["engine"].scene, log=lambda *a: None)
     j.seed()
     t.seed()
@@ -106,7 +109,7 @@ def test_patch_file_round_trip(runs, writer, tmp_path):
     reader = "torch" if writer == "jax" else "jax"
     path = str(tmp_path / "ply" / "00000001")
     runs[writer]["engine"].write_patches(path, export_ply=False, export_patch=True)
-    cfg = small_cfg(prefix)
+    cfg = small_cfg(prefix, JMVSConfig if reader == "jax" else TMVSConfig)
     cfg.prefix = str(tmp_path)
     scene = runs[reader]["engine"].scene
     e = (JPMMVS(cfg, scene=scene, log=lambda *a: None) if reader == "jax"
@@ -131,4 +134,5 @@ def test_cli_cpu_filter_only_and_report(runs, tmp_path):
     assert os.path.exists(out + ".ply") and os.path.exists(out + ".patch")
     assert os.path.exists(report)
     # on the CPU the sampler runs its plain version: no kernel launch
-    assert cuda_ncc.LAUNCHES == {"ungrouped": 0, "grouped": 0}
+    assert cuda_ncc.LAUNCHES == {"ungrouped": 0, "grouped": 0,
+                                 "luma_ungrouped": 0, "luma_grouped": 0}

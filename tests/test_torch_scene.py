@@ -18,6 +18,8 @@ from mvskit_tpu_torch.utils import synthetic as tsyn
 def _assert_scene_equal(j, t):
     np.testing.assert_array_equal(np.asarray(j.planes), t.planes.numpy())
     np.testing.assert_array_equal(np.asarray(j.planes_packed), t.planes_packed.numpy())
+    np.testing.assert_array_equal(np.asarray(j.planes_luma_quad),
+                                  t.planes_luma_quad.numpy())
     assert t.planes_packed.dtype.is_floating_point is False
     assert (j.offsets, j.widths, j.heights, j.max_level) == (
         t.offsets, t.widths, t.heights, t.max_level)

@@ -19,6 +19,12 @@ import torch
 
 from mvskit_tpu_torch import interop
 
+# The test suite runs in several worker processes on one machine, each
+# with JAX's own thread pools; torch's OpenMP threads spin while they
+# wait, so more than one per process oversubscribes the cores and slows
+# every worker many times over. The test sizes gain nothing from them.
+torch.set_num_threads(1)
+
 
 class _JaxRound:
     """The random numbers of one JAX propagate_round(key)."""
@@ -71,7 +77,7 @@ def jax_scene_to_torch(scene, P, device="cpu"):
         np.asarray(scene.planes), np.asarray(scene.planes_packed),
         None if scene.masks is None else np.asarray(scene.masks),
         P, scene.offsets, scene.widths, scene.heights, scene.max_level,
-        device=device,
+        device=device, planes_luma_quad=np.asarray(scene.planes_luma_quad),
     )
 
 
