@@ -9,10 +9,12 @@ Phases (any failure raises and the process exits non-zero):
   1. build: compiles the kernel library from mvskit_tpu_torch/csrc;
   2. kernels vs plain: the NCC window sampler's four launches (RGB and
      luma, ungrouped and grouped) against their plain PyTorch versions,
-     bit for bit, at the main path's shapes on a 16 x 640x480, 4-level
-     plane scene (4096 patches x 6 views; 4096 x 32 refinement
-     candidates x 6 views), with CUDA-event timings and each kernel's
-     bound (least time for its bytes and operations on an H100);
+     bit for bit, at the shapes their paths give them on a 16 x 640x480,
+     4-level plane scene (RGB ungrouped: 4096 patches x 6 views; the
+     other three: 4096 x 32 refinement candidates x 6 views, the luma
+     ungrouped launch also on the 4096 x 6), with CUDA-event timings and
+     each kernel's bound (least time for its bytes and operations on an
+     H100);
   3. RGB main path: writes the 16 x 640x480, 4096-seed plane dataset and
      runs `mvskit_tpu_torch.cli.main` with the default config (3
      iterations, 8 rounds, 6 x 32 RGB search, 2^18-row table);
@@ -56,11 +58,15 @@ FLOPS_PER_SAMPLE = {"rgb": 8 + 4 + 4 + 24, "luma": 8 + 4 + 11}
 # 0.9997 on the TPU).
 LIMITS = {"rgb": (0.015, 0.98), "luma": (0.017, 0.98), "illum3": (0.015, 0.98)}
 ACC_MEAN_BAR = 0.012
-KERNELS = (  # name, launch-counter form, channel mode, window set
-    ("sample_windows_ungrouped", "ungrouped", "rgb", "ungrouped"),
-    ("sample_windows_grouped", "grouped", "rgb", "grouped"),
-    ("sample_windows_luma_ungrouped", "luma_ungrouped", "luma", "ungrouped"),
-    ("sample_windows_luma_grouped", "luma_grouped", "luma", "grouped"),
+# name, launch-counter form, channel mode, the window set its path gives
+# it (K1: the gauntlet's patches x views; K2, K3 grouped and K3
+# ungrouped: the refinement candidates, which the luma path launches
+# ungrouped when refine_group_dma=False), group of the launch
+KERNELS = (
+    ("sample_windows_ungrouped", "ungrouped", "rgb", "ungrouped", 1),
+    ("sample_windows_grouped", "grouped", "rgb", "grouped", N_CANDS),
+    ("sample_windows_luma_ungrouped", "luma_ungrouped", "luma", "grouped", 1),
+    ("sample_windows_luma_grouped", "luma_grouped", "luma", "grouped", N_CANDS),
 )
 
 
@@ -95,7 +101,7 @@ def cuda_time_ms(fn, reps: int = 7) -> float:
     return times[len(times) // 2]
 
 
-def window_sets(dev, n_views=16, width=640, height=480, n_patches=4096):
+def window_sets(dev):
     """Windows of real patch geometry at the main path's shapes: 4096
     plane patches with their 6 best views (sortImages order), and the
     4096 x 32 jittered refinement candidates of round 0 over the same
@@ -110,14 +116,13 @@ def window_sets(dev, n_views=16, width=640, height=480, n_patches=4096):
     from mvskit_tpu_torch.utils import synthetic
 
     Ps, _, scene = synthetic.plane_scene(
-        n_views=n_views, width=width, height=height, max_level=LEVEL + 3,
-        device=dev,
+        n_views=16, width=640, height=480, max_level=LEVEL + 3, device=dev
     )
-    coord_np, normal_np = synthetic.plane_points(Ps, n_patches, seed=1, extent=0.8)
+    coord_np, normal_np = synthetic.plane_points(Ps, 4096, seed=1, extent=0.8)
     coord = torch.as_tensor(coord_np, dtype=torch.float32, device=dev)
     normal = torch.as_tensor(normal_np, dtype=torch.float32, device=dev)
     B = coord.shape[0]
-    empty = torch.full((B, n_views), -1, dtype=torch.int32, device=dev)
+    empty = torch.full((B, 16), -1, dtype=torch.int32, device=dev)
     images = vw.add_images(scene, coord, normal, empty, LEVEL, 1.0471976)
     images = vw.sort_images(scene, coord, normal, images, LEVEL, is_fixed=False)
     views = images[:, :TAU]
@@ -205,72 +210,80 @@ def bits_equal(a, b) -> bool:
                             b.contiguous().view(torch.int32)))
 
 
-def kernel_phase(dev):
-    """Phase 2. Returns the per-kernel records (without path launches)."""
+def measure(name, scene, wset, mode, group):
+    """One launch form on one window set: bit for bit against its plain
+    version, finite NCC costs, its bound and its times (kernel, plain,
+    kernel, plain, each a median of 7). Returns (record, output)."""
     import torch
 
     from mvskit_tpu_torch.ops import cuda_ncc, ncc
 
-    scene, sets = window_sets(dev)
+    idx, lvl, tl, dx, dy, valid, T, Bw = wset
+    luma = mode == "luma"
     S = WSIZE * WSIZE
+    nwin = idx.shape[0]
+    kern = lambda: cuda_ncc.sample_windows(  # noqa: E731
+        scene, idx, lvl, tl, dx, dy, WSIZE, group=group, luma=luma)[0]
+    plain_fn = cuda_ncc.sample_windows_luma_plain if luma else cuda_ncc.sample_windows_plain
+    plain = lambda: plain_fn(scene, idx, lvl, tl, dx, dy, WSIZE)  # noqa: E731
+    out_k = kern()
+    torch.cuda.synchronize()
+    out_p = plain()
+    torch.cuda.synchronize()
+    bitwise = bits_equal(out_k, out_p)
+    both = torch.isfinite(out_k) & torch.isfinite(out_p)
+    err = (out_k - out_p).abs()[both].max().item() if both.any() else 0.0
+    if not bitwise:
+        raise AssertionError(f"{name}: kernel differs from its plain version "
+                             f"(max |d| {err})")
+    # NCC costs through normalize_tex / incc_cost
+    C = 1 if luma else 3
+    cost = ncc.incc_cost(ncc.normalize_tex(out_k.reshape(T, Bw, C * S), C, S), valid, 3)
+    if not torch.isfinite(cost).all():
+        raise AssertionError(f"{name}: non-finite NCC cost")
+    del out_p, cost
+    touched = touched_pixels(scene, idx, lvl, tl, dx, dy, mode)
+    b_ms, b_by, nbytes, flops = bound(nwin, mode, touched)
+    ms, plain_ms = [], []
+    for _ in range(2):
+        ms.append(cuda_time_ms(kern))
+        plain_ms.append(cuda_time_ms(plain))
+    rec = {"windows": nwin, "group": group, "valid_frac": float(valid.float().mean()),
+           "max_abs_err": err, "bitwise_equal_plain": bitwise,
+           "touched_plane_words": touched, "bytes": nbytes, "flops": flops,
+           "bound_ms": b_ms, "bound_by": b_by, "ms_runs": ms, "plain_ms_runs": plain_ms,
+           "ms": min(ms), "plain_ms": min(plain_ms)}
+    rec["bound_share"] = b_ms / rec["ms"]
+    rec["msamples_per_s"] = nwin * S / rec["ms"] / 1e3
+    return rec, out_k
+
+
+def kernel_phase(dev):
+    """Phase 2. Returns the per-kernel records (without path launches)."""
+    import torch
+
+    scene, sets = window_sets(dev)
     card = card_line()
     records = {}
-    for name, form, mode, wset in KERNELS:
-        idx, lvl, tl, dx, dy, valid, T, Bw = sets[wset]
-        luma = mode == "luma"
-        group = N_CANDS if wset == "grouped" else 1
-        nwin = idx.shape[0]
-        kern = lambda: cuda_ncc.sample_windows(  # noqa: E731
-            scene, idx, lvl, tl, dx, dy, WSIZE, group=group, luma=luma)[0]
-        plain_fn = cuda_ncc.sample_windows_luma_plain if luma else cuda_ncc.sample_windows_plain
-        plain = lambda: plain_fn(scene, idx, lvl, tl, dx, dy, WSIZE)  # noqa: E731
-        out_k = kern()
-        torch.cuda.synchronize()
-        out_p = plain()
-        torch.cuda.synchronize()
-        bitwise = bits_equal(out_k, out_p)
-        both = torch.isfinite(out_k) & torch.isfinite(out_p)
-        err = (out_k - out_p).abs()[both].max().item() if both.any() else 0.0
-        if not bitwise:
-            raise AssertionError(f"{name}: kernel differs from its plain version "
-                                 f"(max |d| {err})")
-        # NCC costs through normalize_tex / incc_cost
-        C = 1 if luma else 3
-        tex = ncc.normalize_tex(out_k.reshape(T, Bw, C * S), C, S)
-        cost = ncc.incc_cost(tex, valid, 3)
-        if not torch.isfinite(cost).all():
-            raise AssertionError(f"{name}: non-finite NCC cost")
-        touched = touched_pixels(scene, idx, lvl, tl, dx, dy, mode)
-        b_ms, b_by, nbytes, flops = bound(nwin, mode, touched)
-        rec = {"windows": nwin, "valid_frac": float(valid.float().mean()),
-               "max_abs_err": err, "bitwise_equal_plain": bitwise,
-               "touched_plane_words": touched, "bytes": nbytes, "flops": flops,
-               "bound_ms": b_ms, "bound_by": b_by}
-        # the ungrouped launch on the same windows
-        ung_fn = lambda: cuda_ncc.sample_windows(  # noqa: E731
-            scene, idx, lvl, tl, dx, dy, WSIZE, luma=luma)[0]
-        if wset == "grouped":
-            rec["bitwise_equal_ungrouped"] = bits_equal(ung_fn(), out_k)
+    for name, _, mode, wset, group in KERNELS:
+        rec, out = measure(name, scene, sets[wset], mode, group)
+        if group > 1:  # the grouped launch equals the ungrouped one
+            ung, out_u = measure(name + " (ungrouped launch)", scene, sets[wset], mode, 1)
+            rec["bitwise_equal_ungrouped"] = bits_equal(out_u, out)
             if not rec["bitwise_equal_ungrouped"]:
                 raise AssertionError(f"{name}: grouped output differs from ungrouped")
-        # kernel, plain, kernel, plain (and the ungrouped launch on the
-        # grouped windows between them), each a median of 7
-        ms, plain_ms, ung_ms = [], [], []
-        for _ in range(2):
-            ms.append(cuda_time_ms(kern))
-            if wset == "grouped":
-                ung_ms.append(cuda_time_ms(ung_fn))
-            plain_ms.append(cuda_time_ms(plain))
-        rec["ms_runs"], rec["plain_ms_runs"] = ms, plain_ms
-        rec["ms"], rec["plain_ms"] = min(ms), min(plain_ms)
-        if ung_ms:
-            rec["ungrouped_ms_same_windows"] = min(ung_ms)
+            rec["ungrouped_ms_same_windows"] = ung["ms"]
+            del out_u
+        elif wset != "ungrouped":  # also at the gauntlet's shape
+            g, out_g = measure(name + " (gauntlet windows)", scene, sets["ungrouped"],
+                               mode, 1)
+            rec["gauntlet_windows"] = {k: g[k] for k in (
+                "windows", "ms", "plain_ms", "bound_ms", "bound_share")}
+            del out_g
         rec["library_ms"] = None  # no single PyTorch call computes it (PERF.md)
-        rec["bound_share"] = b_ms / rec["ms"]
-        rec["msamples_per_s"] = nwin * S / rec["ms"] / 1e3
         log(f"[kernel] {name} on {card}: " + json.dumps(rec))
         records[name] = rec
-        del out_k, out_p, tex, cost
+        del out
         torch.cuda.empty_cache()
     return records
 
@@ -312,7 +325,7 @@ def check_quality(tag, m, limits):
         raise AssertionError(f"{tag}: quality below the limits {limits}: {m}")
 
 
-def cli_path(tag, dev, prefix, extra=()):
+def cli_path(tag, dev, prefix):
     """The port's CLI on `prefix` with the launch counters reset just
     before and read just after. Returns (report, wall, launches, m)."""
     import torch
@@ -328,7 +341,7 @@ def cli_path(tag, dev, prefix, extra=()):
     cuda_ncc.reset_launches()
     t0 = time.time()
     rc = cli.main([prefix, "--device", dev.type, "--export-patch", "--out", out,
-                   "--report", report_path, *extra])
+                   "--report", report_path])
     wall = time.time() - t0
     launches = dict(cuda_ncc.LAUNCHES)
     if rc != 0:
@@ -384,18 +397,11 @@ def engine_path(tag, dev, prefix, scene=None, **overrides):
     return engine, report, wall, launches, plane_quality(cloud)
 
 
-def paths_phase(dev, workdir, n_views=16, width=640, height=480, n_seeds=4096,
-                cut=None):
-    """Phases 3-5. `cut` overrides MVSConfig fields to shrink the runs
-    for a rehearsal on the CPU (none on the card). Returns
-    {path: summary}."""
+def paths_phase(dev, workdir):
+    """Phases 3-5. Returns {path: summary}."""
     from mvskit_tpu_torch.utils import synthetic
 
-    size = dict(n_views=n_views, width=width, height=height, n_seeds=n_seeds)
-    cut = dict(cut or {})
-    flag = {"n_iterations": "iterations", "gauntlet_chunk": "chunk"}
-    small = [x for k, v in cut.items()
-             for x in ("--" + flag.get(k, k).replace("_", "-"), str(v))]
+    size = dict(n_views=16, width=640, height=480, n_seeds=4096)
     out = {}
 
     # 3. RGB main path
@@ -403,17 +409,15 @@ def paths_phase(dev, workdir, n_views=16, width=640, height=480, n_seeds=4096,
     t0 = time.time()
     synthetic.write_dataset(plane, **size)
     log(f"[main] dataset written in {time.time() - t0:.2f} s")
-    report, wall, launches, m = cli_path("main", dev, plane, small)
+    report, wall, launches, m = cli_path("main", dev, plane)
     out["rgb"] = summarize("main", report, wall, launches, m)
 
     # 4. luma search, full depth, then a short ungrouped run
-    engine, report, wall, launches, m = engine_path(
-        "luma", dev, plane, luma_refine=True, **cut)
+    engine, report, wall, launches, m = engine_path("luma", dev, plane, luma_refine=True)
     out["luma"] = summarize("luma", report, wall, launches, m)
-    short = dict(cut, n_iterations=1, prop_rounds=2)
     _, report, wall, launches, m = engine_path(
         "luma_ungrouped", dev, plane, scene=engine.scene, luma_refine=True,
-        refine_group_dma=False, **short)
+        refine_group_dma=False, n_iterations=1, prop_rounds=2)
     out["luma_ungrouped"] = summarize("luma_ungrouped", report, wall, launches, m)
     del engine
 
@@ -422,7 +426,7 @@ def paths_phase(dev, workdir, n_views=16, width=640, height=480, n_seeds=4096,
     t0 = time.time()
     synthetic.write_dataset(il3, nillums=3, **size)
     log(f"[illum3] dataset written in {time.time() - t0:.2f} s")
-    report, wall, launches, m = cli_path("illum3", dev, il3, small)
+    report, wall, launches, m = cli_path("illum3", dev, il3)
     out["illum3"] = summarize("illum3", report, wall, launches, m)
     out["illum3"]["n_illums"] = report["prop_params"]["n_illums"]
     return out
@@ -447,9 +451,12 @@ def check_paths(paths):
         f"{'met' if rgb['quality']['acc_mean'] <= ACC_MEAN_BAR else 'missed'}")
     check_quality("luma", luma["quality"], LIMITS["luma"])
     check_quality("illum3", il3["quality"], LIMITS["illum3"])
-    log(f"[luma] propagation {luma['propagate_s']:.3f} s vs RGB {rgb['propagate_s']:.3f} s "
-        f"(RGB / luma = {rgb['propagate_s'] / max(luma['propagate_s'], 1e-9):.3f}); "
-        f"wall {luma['wall_s']:.3f} s (engine) vs {rgb['wall_s']:.3f} s (cli)")
+    # both from the driver's stage timer; the two runs enter differently
+    # (luma: PMMVS without snapshots; RGB: cli.main, whose snapshots are
+    # written by a thread during the stages)
+    log(f"[luma] propagation stages {luma['propagate_s']:.3f} s (PMMVS) vs RGB "
+        f"{rgb['propagate_s']:.3f} s (cli.main), luma / RGB = "
+        f"{luma['propagate_s'] / max(rgb['propagate_s'], 1e-9):.3f}")
 
 
 def main() -> int:
@@ -482,7 +489,7 @@ def main() -> int:
     path_of = {"ungrouped": "rgb", "grouped": "rgb", "luma_grouped": "luma",
                "luma_ungrouped": "luma_ungrouped"}
     kernels = []
-    for name, form, _, _ in KERNELS:
+    for name, form, *_ in KERNELS:
         r = records[name]
         kernels.append({
             "name": name, "route": "cuda", "source": KERNEL_SOURCE,

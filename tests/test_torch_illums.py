@@ -8,9 +8,11 @@ and refinement bit for bit on these inputs (tests/test_illums.py allows
 1e-6 for the JAX package); scores on a real
 3-illumination scene within 2e-4 of JAX (the golden-parity bound);
 refinement as tests/test_torch_refine.py (coord 1e-4, ncc 2e-4 on
->= 99 % of rows). The whole pipeline on a 3-illumination dataset is
-held to the JAX driver in tests/test_torch_luma.py (one pipeline pair
-covers both slices); here the port's CLI runs on one."""
+>= 99 % of rows); the whole pipeline on a 3-illumination dataset with
+the default RGB search, seed + 2 iterations, as
+tests/test_torch_pipeline.py holds the single-illumination one (alive
+counts within 3 %, acc_mean and comp_frac within 10 % relative of the
+JAX driver's). Also: the port's CLI on such a dataset."""
 
 import math
 import os
@@ -33,6 +35,7 @@ from mvskit_tpu_torch.ops import cuda_ncc
 from mvskit_tpu_torch.ops import ncc as tncc
 from mvskit_tpu_torch.pipeline import refine as trf
 from test_torch_ncc import _t
+from test_torch_pipeline import assert_alive_tracks_jax, assert_quality_tracks_jax, run_pair
 from torch_replay import jax_scene_to_torch, refine_deltas
 
 LEVEL, WSIZE, TAU, A1 = 1, 7, 6, math.radians(60.0)
@@ -138,6 +141,24 @@ def test_multi_illum_refine_matches_jax(sphere3):
     jq, tq = np.asarray(jres.ncc), tres.ncc.numpy()
     ok = (np.abs(jc - tc).max(1) <= 1e-4) & (np.abs(jq - tq) <= 2e-4)
     assert ok.mean() >= 0.99, (ok.mean(), np.abs(jc - tc).max(), np.abs(jq - tq).max())
+
+
+@pytest.fixture(scope="module")
+def illum3_runs(tmp_path_factory):
+    prefix = str(tmp_path_factory.mktemp("illum3"))
+    jsyn.write_dataset(prefix, n_views=6, width=160, height=120, n_seeds=48, nillums=3)
+    return run_pair(prefix)
+
+
+def test_illum3_pipeline_alive_tracks_jax(illum3_runs):
+    for name in ("jax", "torch"):
+        p = illum3_runs[name]["engine"].prop_params
+        assert p.n_illums == 3 and not p.luma_refine
+    assert_alive_tracks_jax(illum3_runs)
+
+
+def test_illum3_pipeline_quality_tracks_jax(illum3_runs):
+    assert assert_quality_tracks_jax(illum3_runs)["acc_median"] < 0.02
 
 
 def test_multi_illum_cli_cpu(tmp_path):

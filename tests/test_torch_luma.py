@@ -15,11 +15,10 @@ Tolerances and why:
   * refinement: coord and normal 1e-4, ncc 2e-4, on >= 99 % of rows (an
     argmin over near-equal candidate costs may flip);
   * pipeline: alive counts within 3 %, quality within 10 % relative, as
-    tests/test_torch_pipeline.py allows. One pipeline pair (JAX driver
+    tests/test_torch_pipeline.py allows. The pipeline pair (JAX driver
     and port, seed + 2 iterations) runs the luma search on a
-    3-illumination dataset, so it also holds multi-illumination scoring
-    (tests/test_torch_illums.py) to the JAX driver: a JAX driver run
-    costs about a minute of compilation on the CPU.
+    3-illumination dataset; tests/test_torch_illums.py runs the RGB
+    search on one.
 The kernel itself is held to its plain version on the card
 (tests/test_torch_cuda.py, chip_smoke.py)."""
 
@@ -36,18 +35,16 @@ from mvskit_tpu.ops import pallas_ncc as pk
 from mvskit_tpu.ops import sampling as jsmp
 from mvskit_tpu.pipeline import refine as jrf
 from mvskit_tpu.pipeline import views as jvw
-from mvskit_tpu.pipeline.driver import PMMVS as JPMMVS
 from mvskit_tpu.utils import synthetic as jsyn
 from mvskit_tpu_torch import config as tconfig
 from mvskit_tpu_torch.ops import cuda_ncc
 from mvskit_tpu_torch.ops import ncc as tncc
 from mvskit_tpu_torch.ops import sampling as tsmp
 from mvskit_tpu_torch.pipeline import refine as trf
-from mvskit_tpu_torch.pipeline.driver import PMMVS as TPMMVS
 from mvskit_tpu_torch.utils import synthetic as tsyn
 from test_torch_ncc import _geometry, _t, _views
-from test_torch_pipeline import _quality, small_cfg
-from torch_replay import JaxReplayNoise, jax_scene_to_torch, refine_deltas, seeded_plane
+from test_torch_pipeline import assert_alive_tracks_jax, assert_quality_tracks_jax, run_pair
+from torch_replay import jax_scene_to_torch, refine_deltas, seeded_plane
 
 LEVEL, WSIZE, TAU, A1 = 1, 7, 6, math.radians(60.0)
 S = WSIZE * WSIZE
@@ -246,42 +243,17 @@ def test_luma_refine_degenerate_budget_and_bad_tail(refine_setup):
         check_supported(cfg)
 
 
-ITERS = 2
-
 
 @pytest.fixture(scope="module")
 def luma_runs(tmp_path_factory):
-    from mvskit_tpu.config import MVSConfig as JMVSConfig
-
     prefix = str(tmp_path_factory.mktemp("luma"))
     jsyn.write_dataset(prefix, n_views=6, width=160, height=120, n_seeds=48, nillums=3)
-    out = {}
-    for name in ("jax", "torch"):
-        cfg = small_cfg(prefix, JMVSConfig if name == "jax" else tconfig.MVSConfig)
-        cfg.luma_refine = True
-        e = (JPMMVS(cfg, log=lambda *a: None) if name == "jax" else
-             TPMMVS(cfg, device="cpu", noise=JaxReplayNoise(0), log=lambda *a: None))
-        assert e.prop_params.luma_refine and e.prop_params.rgb_tail == 2
-        assert e.prop_params.n_illums == 3
-        e.seed()
-        alive = [int(np.asarray(e.table.alive).sum())]
-        for it in range(ITERS):
-            e.propagate(it)
-            e.filter()
-            e.update_threshold()
-            e.depth += 1
-            alive.append(int(np.asarray(e.table.alive).sum()))
-        out[name] = dict(alive=alive, data=e.collect())
-    return out
+    return run_pair(prefix, luma_refine=True)
 
 
 def test_luma_pipeline_tracks_jax(luma_runs):
-    ja, ta = luma_runs["jax"]["alive"], luma_runs["torch"]["alive"]
-    assert ja[0] == ta[0]
-    assert ta[-1] > ta[0]
-    for a, b in zip(ja, ta):
-        assert abs(a - b) <= 0.03 * a, (ja, ta)
-    mj = _quality(luma_runs["jax"]["data"]["coord"][:, :3])
-    mt = _quality(luma_runs["torch"]["data"]["coord"][:, :3])
-    for k in ("acc_mean", "comp_frac"):
-        assert abs(mt[k] - mj[k]) <= 0.1 * mj[k], (k, mt, mj)
+    for name in ("jax", "torch"):
+        p = luma_runs[name]["engine"].prop_params
+        assert p.luma_refine and p.rgb_tail == 2 and p.n_illums == 3
+    assert_alive_tracks_jax(luma_runs)
+    assert_quality_tracks_jax(luma_runs)

@@ -47,18 +47,17 @@ def _quality(cloud):
     return metrics.accuracy_completeness(cloud, gt, threshold=0.05)
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    prefix = str(tmp_path_factory.mktemp("scene"))
-    jsyn.write_dataset(prefix, n_views=6, width=160, height=120, n_seeds=48)
-    out = {"prefix": prefix}
-    engines = (
-        ("jax", lambda: JPMMVS(small_cfg(prefix, JMVSConfig), log=lambda *a: None)),
-        ("torch", lambda: TPMMVS(small_cfg(prefix), device="cpu",
-                                 noise=JaxReplayNoise(0), log=lambda *a: None)),
-    )
-    for name, make in engines:
-        e = make()
+def run_pair(prefix, **overrides):
+    """The JAX driver and the port (fed the JAX driver's random numbers)
+    on the dataset at `prefix`, the test size with `overrides`, seed +
+    ITERS iterations. Returns {name: dict(engine, alive, data)}."""
+    out = {}
+    for name in ("jax", "torch"):
+        cfg = small_cfg(prefix, JMVSConfig if name == "jax" else TMVSConfig)
+        for k, v in overrides.items():
+            setattr(cfg, k, v)
+        e = (JPMMVS(cfg, log=lambda *a: None) if name == "jax" else
+             TPMMVS(cfg, device="cpu", noise=JaxReplayNoise(0), log=lambda *a: None))
         e.seed()
         alive = [int(np.asarray(e.table.alive).sum())]
         for it in range(ITERS):
@@ -71,7 +70,7 @@ def runs(tmp_path_factory):
     return out
 
 
-def test_alive_counts_track_jax(runs):
+def assert_alive_tracks_jax(runs):
     ja, ta = runs["jax"]["alive"], runs["torch"]["alive"]
     assert ja[0] == ta[0]  # identical seeding
     assert ta[-1] > ta[0]
@@ -79,12 +78,27 @@ def test_alive_counts_track_jax(runs):
         assert abs(a - b) <= 0.03 * a, (ja, ta)
 
 
-def test_quality_tracks_jax(runs):
+def assert_quality_tracks_jax(runs):
     mj = _quality(runs["jax"]["data"]["coord"][:, :3])
     mt = _quality(runs["torch"]["data"]["coord"][:, :3])
     for k in ("acc_mean", "comp_frac"):
         assert abs(mt[k] - mj[k]) <= 0.1 * mj[k], (k, mt, mj)
-    assert mt["acc_median"] < 0.02
+    return mt
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    prefix = str(tmp_path_factory.mktemp("scene"))
+    jsyn.write_dataset(prefix, n_views=6, width=160, height=120, n_seeds=48)
+    return dict(run_pair(prefix), prefix=prefix)
+
+
+def test_alive_counts_track_jax(runs):
+    assert_alive_tracks_jax(runs)
+
+
+def test_quality_tracks_jax(runs):
+    assert assert_quality_tracks_jax(runs)["acc_median"] < 0.02
 
 
 def test_seeds_match_exactly(runs):
