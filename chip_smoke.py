@@ -7,14 +7,15 @@ Phases (any failure raises and the process exits non-zero):
   0. device: needs torch.cuda; prints the card's name and power limit
      (nvidia-smi) and the CUDA version;
   1. build: compiles the kernel library from mvskit_tpu_torch/csrc;
-  2. kernels vs plain: the NCC window sampler's four launches (RGB and
-     luma, ungrouped and grouped) against their plain PyTorch versions,
-     bit for bit, at the shapes their paths give them on a 16 x 640x480,
-     4-level plane scene (RGB ungrouped: 4096 patches x 6 views; the
-     other three: 4096 x 32 refinement candidates x 6 views, the luma
-     ungrouped launch also on the 4096 x 6), with CUDA-event timings and
-     each kernel's bound (least time for its bytes and operations on an
-     H100);
+  2. kernels vs plain: the NCC window sampler's launch forms (RGB and
+     luma, ungrouped, grouped and fused) against their plain PyTorch
+     versions, bit for bit, at the shapes their paths give them on a
+     16 x 640x480, 4-level plane scene (RGB ungrouped: 4096 patches x 6
+     views; the others: 4096 x 32 refinement candidates x 6 views, the
+     luma ungrouped launch also on the 4096 x 6), the grouped and fused
+     forms also against the ungrouped / grouped launch, with CUDA-event
+     timings and each kernel's bound (least time for its bytes and
+     operations on an H100);
   3. RGB main path: writes the 16 x 640x480, 4096-seed plane dataset and
      runs `mvskit_tpu_torch.cli.main` with the default config (3
      iterations, 8 rounds, 6 x 32 RGB search, 2^18-row table);
@@ -24,11 +25,17 @@ Phases (any failure raises and the process exits non-zero):
      launches the ungrouped luma kernel;
   5. multi-illumination: a 3-illumination dataset of the same size
      through `cli.main` with the default config (every score averaged
-     over the 3 illuminations).
+     over the 3 illuminations);
+  6. kernel bench path: `mvskit_tpu_torch.tools.bench_kernel.run` at the
+     JAX tool's size (57,344 windows on 16 x 640x480): group 1 and 32,
+     fused off and on, and every ablation switch on the grouped RGB and
+     luma forms, each output bit for bit against its plain version;
+  7. pmvs: `cli.main --strategy pmvs` on phase 3's dataset at the
+     default depth.
 Each path runs with the launch counters set to 0 just before it and
-read just after; each checks its outputs and its quality against the
-analytic plane. The line before the last is the kernels' JSON record;
-the last line is {"ok": true, "device": {...}}.
+read just after; each checks its outputs and, where the path has one,
+its quality against the analytic plane. The line before the last is the
+kernels' JSON record; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -44,13 +51,19 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 WSIZE, LEVEL, TAU, N_CANDS = 7, 1, 6, 32
 KERNEL_SOURCE = "mvskit_tpu_torch/csrc/sample_windows.cu"
 REPLACES = "mvskit_tpu/ops/pallas_ncc.py:190"
+REPLACES_FUSED = "mvskit_tpu/ops/pallas_ncc.py:323"
+REPLACES_ABLATE = "mvskit_tpu/ops/pallas_ncc.py:194"
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 FLOP/s
 # outside the tensor cores
 HBM_BYTES_PER_S, F32_FLOPS = 3.35e12, 67e12
 # float32 operations per sample: lattice 8 (4 mul + 4 add); tap
 # fractions 4; RGB: 4 tap weights + 3 channels x 4 taps x (mul + add);
-# luma: 4 taps x 2 mul + 3 add
+# luma: 4 taps x 2 mul + 3 add. Ablation switches: nodma, norot and nowx
+# do the same arithmetic; nocompute only the lattice; nomm the lattice
+# and the unweighted tap sums (RGB 3 x 4 adds, luma 3 adds)
 FLOPS_PER_SAMPLE = {"rgb": 8 + 4 + 4 + 24, "luma": 8 + 4 + 11}
+ABLATE_FLOPS = {("rgb", "nocompute"): 8, ("luma", "nocompute"): 8,
+                ("rgb", "nomm"): 8 + 12, ("luma", "nomm"): 8 + 3}
 # limits per path (acc_mean max, comp_frac min) at 0.05 against the
 # analytic plane. RGB and multi-illumination: the round's carried-over
 # quality bar (E2E_r05.json, a TPU v5e run of the JAX package: acc_mean
@@ -61,12 +74,15 @@ ACC_MEAN_BAR = 0.012
 # name, launch-counter form, channel mode, the window set its path gives
 # it (K1: the gauntlet's patches x views; K2, K3 grouped and K3
 # ungrouped: the refinement candidates, which the luma path launches
-# ungrouped when refine_group_dma=False), group of the launch
+# ungrouped when refine_group_dma=False; K4, whose path is the kernel
+# bench: the same refinement candidates), group of the launch, fused
 KERNELS = (
-    ("sample_windows_ungrouped", "ungrouped", "rgb", "ungrouped", 1),
-    ("sample_windows_grouped", "grouped", "rgb", "grouped", N_CANDS),
-    ("sample_windows_luma_ungrouped", "luma_ungrouped", "luma", "grouped", 1),
-    ("sample_windows_luma_grouped", "luma_grouped", "luma", "grouped", N_CANDS),
+    ("sample_windows_ungrouped", "ungrouped", "rgb", "ungrouped", 1, False),
+    ("sample_windows_grouped", "grouped", "rgb", "grouped", N_CANDS, False),
+    ("sample_windows_luma_ungrouped", "luma_ungrouped", "luma", "grouped", 1, False),
+    ("sample_windows_luma_grouped", "luma_grouped", "luma", "grouped", N_CANDS, False),
+    ("sample_windows_fused", "fused", "rgb", "grouped", N_CANDS, True),
+    ("sample_windows_luma_fused", "luma_fused", "luma", "grouped", N_CANDS, True),
 )
 
 
@@ -80,25 +96,6 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return res.stdout.strip().splitlines()[0]
-
-
-def cuda_time_ms(fn, reps: int = 7) -> float:
-    """Median of `reps` warm runs, each timed with CUDA events."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    times.sort()
-    return times[len(times) // 2]
 
 
 def window_sets(dev):
@@ -165,32 +162,36 @@ def window_sets(dev):
     return scene, {"ungrouped": ungrouped, "grouped": grouped}
 
 
-def touched_pixels(scene, idx, lvl, tl, dx, dy, mode: str) -> int:
+def touched_pixels(scene, idx, lvl, tl, dx, dy, mode: str, ablate: str = "") -> int:
     """Distinct plane pixels (4-byte words) the windows read: the four
     taps of each sample in the RGB form, the one quad of each sample in
-    the luma form."""
+    the luma form; under an ablation switch what it still reads (nodma
+    none, nocompute tap 00, nowx the lattice origin's taps)."""
     import torch
 
     from mvskit_tpu_torch.ops import cuda_ncc, sampling
 
+    if ablate == "nodma":
+        return 0
     planes = scene.planes_luma_quad if mode == "luma" else scene.planes_packed
     n, ni, total = planes.shape
     seen = torch.zeros(n * ni * total, dtype=torch.bool, device=planes.device)
     step = 1 << 18
     for s in range(0, idx.shape[0], step):
         sl = slice(s, s + step)
-        gx, gy = cuda_ncc.lattice(tl[sl], dx[sl], dy[sl], WSIZE)
+        gx, gy = cuda_ncc.lattice(tl[sl], dx[sl], dy[sl], WSIZE, origin=ablate == "nowx")
         lv = lvl[sl].long().clamp(0, len(scene.offsets) - 1).unsqueeze(1)
         w = scene.lvl_widths[lv]
         lx, ly = sampling._bilinear_frac(gx, gy, w, scene.lvl_heights[lv])[:2]
         base = ((idx[sl].long() * ni).unsqueeze(1) * total + scene.lvl_offsets[lv]
                 + ly * w + lx).long()
-        for d in ((0,) if mode == "luma" else (0, 1, w.long(), w.long() + 1)):
+        one = mode == "luma" or ablate == "nocompute"
+        for d in ((0,) if one else (0, 1, w.long(), w.long() + 1)):
             seen[(base + d).reshape(-1)] = True
     return int(seen.sum())
 
 
-def bound(nwin: int, mode: str, touched: int):
+def bound(nwin: int, mode: str, touched: int, ablate: str = ""):
     """Least time (ms) for the kernel's work on an H100 and what bounds
     it: the bytes it must move (32 B of window parameters per window,
     each touched plane word once, each output float once) over HBM
@@ -198,32 +199,27 @@ def bound(nwin: int, mode: str, touched: int):
     S = WSIZE * WSIZE
     out_floats = nwin * S * (1 if mode == "luma" else 3)
     nbytes = nwin * 32 + touched * 4 + out_floats * 4
-    flops = nwin * S * FLOPS_PER_SAMPLE[mode]
+    flops = nwin * S * ABLATE_FLOPS.get((mode, ablate), FLOPS_PER_SAMPLE[mode])
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
 
 
-def bits_equal(a, b) -> bool:
-    import torch
-
-    return bool(torch.equal(a.contiguous().view(torch.int32),
-                            b.contiguous().view(torch.int32)))
-
-
-def measure(name, scene, wset, mode, group):
+def measure(name, scene, wset, mode, group, fused=False):
     """One launch form on one window set: bit for bit against its plain
-    version, finite NCC costs, its bound and its times (kernel, plain,
-    kernel, plain, each a median of 7). Returns (record, output)."""
+    version, finite NCC costs, its bound and its times (kernel, kernel
+    as one call, plain, twice; each a median of 7). Returns (record,
+    output)."""
     import torch
 
     from mvskit_tpu_torch.ops import cuda_ncc, ncc
+    from mvskit_tpu_torch.tools.bench_kernel import bits_equal, cuda_time_ms
 
     idx, lvl, tl, dx, dy, valid, T, Bw = wset
     luma = mode == "luma"
     S = WSIZE * WSIZE
     nwin = idx.shape[0]
     kern = lambda: cuda_ncc.sample_windows(  # noqa: E731
-        scene, idx, lvl, tl, dx, dy, WSIZE, group=group, luma=luma)[0]
+        scene, idx, lvl, tl, dx, dy, WSIZE, group=group, luma=luma, fused=fused)[0]
     plain_fn = cuda_ncc.sample_windows_luma_plain if luma else cuda_ncc.sample_windows_plain
     plain = lambda: plain_fn(scene, idx, lvl, tl, dx, dy, WSIZE)  # noqa: E731
     out_k = kern()
@@ -244,15 +240,19 @@ def measure(name, scene, wset, mode, group):
     del out_p, cost
     touched = touched_pixels(scene, idx, lvl, tl, dx, dy, mode)
     b_ms, b_by, nbytes, flops = bound(nwin, mode, touched)
-    ms, plain_ms = [], []
+    ms, plain_ms, call_ms = [], [], []
     for _ in range(2):
-        ms.append(cuda_time_ms(kern))
-        plain_ms.append(cuda_time_ms(plain))
-    rec = {"windows": nwin, "group": group, "valid_frac": float(valid.float().mean()),
+        ms.append(cuda_time_ms(kern, 7))
+        call_ms.append(cuda_time_ms(kern, 7, hold=False))
+        plain_ms.append(cuda_time_ms(plain, 7))
+    rec = {"windows": nwin, "group": group, "fused": fused,
+           "form": cuda_ncc.launch_form(nwin, group, luma, fused),
+           "valid_frac": float(valid.float().mean()),
            "max_abs_err": err, "bitwise_equal_plain": bitwise,
            "touched_plane_words": touched, "bytes": nbytes, "flops": flops,
            "bound_ms": b_ms, "bound_by": b_by, "ms_runs": ms, "plain_ms_runs": plain_ms,
-           "ms": min(ms), "plain_ms": min(plain_ms)}
+           "call_ms_runs": call_ms, "ms": min(ms), "call_ms": min(call_ms),
+           "plain_ms": min(plain_ms)}
     rec["bound_share"] = b_ms / rec["ms"]
     rec["msamples_per_s"] = nwin * S / rec["ms"] / 1e3
     return rec, out_k
@@ -262,12 +262,24 @@ def kernel_phase(dev):
     """Phase 2. Returns the per-kernel records (without path launches)."""
     import torch
 
+    from mvskit_tpu_torch.tools.bench_kernel import bits_equal
+
     scene, sets = window_sets(dev)
     card = card_line()
     records = {}
-    for name, _, mode, wset, group in KERNELS:
-        rec, out = measure(name, scene, sets[wset], mode, group)
-        if group > 1:  # the grouped launch equals the ungrouped one
+    for name, _, mode, wset, group, fused in KERNELS:
+        rec, out = measure(name, scene, sets[wset], mode, group, fused)
+        if fused:  # the fused launch equals the unfused grouped one
+            base = "sample_windows_luma_grouped" if mode == "luma" else "sample_windows_grouped"
+            grp, out_g = measure(name + " (grouped launch)", scene, sets[wset], mode, group)
+            rec["bitwise_equal_grouped"] = bits_equal(out_g, out)
+            if not rec["bitwise_equal_grouped"]:
+                raise AssertionError(f"{name}: fused output differs from grouped")
+            rec["grouped_ms_same_windows"] = grp["ms"]
+            rec["vs_" + base] = rec["ms"] / records[base]["ms"]
+            rec["vs_grouped_same_call"] = rec["ms"] / grp["ms"]
+            del out_g
+        elif group > 1:  # the grouped launch equals the ungrouped one
             ung, out_u = measure(name + " (ungrouped launch)", scene, sets[wset], mode, 1)
             rec["bitwise_equal_ungrouped"] = bits_equal(out_u, out)
             if not rec["bitwise_equal_ungrouped"]:
@@ -286,6 +298,40 @@ def kernel_phase(dev):
         del out
         torch.cuda.empty_cache()
     return records
+
+
+def bench_phase(dev):
+    """Phase 6: the kernel bench path (tools/bench_kernel.run) at the JAX
+    tool's size, with the launch counters set to 0 just before and read
+    just after. Every output equals its plain version bit for bit; each
+    ablated run gets its bound from its own reads. Returns (records,
+    launches)."""
+    from mvskit_tpu_torch.ops import cuda_ncc
+    from mvskit_tpu_torch.tools import bench_kernel as bk
+
+    scene = bk.bench_scene(dev, **bk.SCENE)
+    settings = ([(g, f, "") for g in (1, N_CANDS) for f in (False, True)]
+                + [(N_CANDS, False, a) for a in cuda_ncc.ABLATIONS[1:]])
+    cuda_ncc.reset_launches()
+    records = []
+    for group, fused, ablate in settings:
+        res = bk.run(bk.N_WINDOWS, reps=7, group=group, fused=fused, ablate=ablate,
+                     scene=scene)
+        rec = res.record
+        for mode in ("luma", "rgb"):
+            if not rec[mode]["bitwise_equal_plain"]:
+                raise AssertionError(f"bench {group}/{fused}/{ablate!r} {mode}: kernel "
+                                     f"differs from its plain version")
+            lay = res.layout
+            touched = touched_pixels(scene[1], lay["idx"], lay["lvl"], lay["tl"], lay["dx"],
+                                     lay["dy"], mode, ablate)
+            b_ms, b_by, _, _ = bound(bk.N_WINDOWS, mode, touched, ablate)
+            rec[mode].update(bound_ms=b_ms, bound_by=b_by, touched_plane_words=touched)
+        log("[bench] " + json.dumps(rec))
+        records.append(rec)
+    launches = dict(cuda_ncc.LAUNCHES)
+    log("[bench] launches " + json.dumps(launches))
+    return records, launches
 
 
 def plane_quality(cloud):
@@ -325,9 +371,10 @@ def check_quality(tag, m, limits):
         raise AssertionError(f"{tag}: quality below the limits {limits}: {m}")
 
 
-def cli_path(tag, dev, prefix):
-    """The port's CLI on `prefix` with the launch counters reset just
-    before and read just after. Returns (report, wall, launches, m)."""
+def cli_path(tag, dev, prefix, *flags):
+    """The port's CLI on `prefix` (with extra `flags`) with the launch
+    counters reset just before and read just after. Returns (report,
+    wall, launches, m)."""
     import torch
 
     from mvskit_tpu_torch import cli
@@ -341,7 +388,7 @@ def cli_path(tag, dev, prefix):
     cuda_ncc.reset_launches()
     t0 = time.time()
     rc = cli.main([prefix, "--device", dev.type, "--export-patch", "--out", out,
-                   "--report", report_path])
+                   "--report", report_path, *flags])
     wall = time.time() - t0
     launches = dict(cuda_ncc.LAUNCHES)
     if rc != 0:
@@ -432,10 +479,24 @@ def paths_phase(dev, workdir):
     return out
 
 
+def pmvs_phase(dev, workdir):
+    """Phase 7: the pmvs strategy through the CLI on phase 3's dataset."""
+    report, wall, launches, m = cli_path("pmvs", dev, os.path.join(workdir, "plane16"),
+                                         "--strategy", "pmvs")
+    summary = summarize("pmvs", report, wall, launches, m)
+    summary["accepted_per_iter"] = [st["accepted"] for st in report["stages"]
+                                    if st["stage"].startswith("propagate")]
+    if report["strategy"] != "pmvs":
+        raise AssertionError(f"pmvs path ran strategy {report['strategy']!r}")
+    return summary
+
+
 def check_paths(paths):
     """The path checks of the card run: launches of each kernel on its
-    path, the illumination count, quality limits."""
-    rgb, luma, lu, il3 = (paths[k] for k in ("rgb", "luma", "luma_ungrouped", "illum3"))
+    path, the illumination count, quality limits, accepted hypotheses of
+    every pmvs iteration."""
+    rgb, luma, lu, il3, pmvs = (paths[k] for k in (
+        "rgb", "luma", "luma_ungrouped", "illum3", "pmvs"))
     if not (rgb["launches"]["ungrouped"] > 0 and rgb["launches"]["grouped"] > 0):
         raise AssertionError(f"RGB main path missed a kernel: {rgb['launches']}")
     if not (luma["launches"]["luma_grouped"] > 0 and luma["launches"]["grouped"] > 0):
@@ -446,6 +507,14 @@ def check_paths(paths):
         raise AssertionError(f"illum-3 path ran with n_illums {il3['n_illums']}")
     if not (il3["launches"]["ungrouped"] > 0 and il3["launches"]["grouped"] > 0):
         raise AssertionError(f"illum-3 path missed a kernel: {il3['launches']}")
+    if not (pmvs["launches"]["ungrouped"] > 0 and pmvs["launches"]["grouped"] > 0):
+        raise AssertionError(f"pmvs path missed a kernel: {pmvs['launches']}")
+    if not (len(pmvs["accepted_per_iter"]) == 3 and min(pmvs["accepted_per_iter"]) > 0):
+        raise AssertionError(f"pmvs accepted no hypothesis in an iteration: "
+                             f"{pmvs['accepted_per_iter']}")
+    # no completeness limit: pmvs expands an order of magnitude less by
+    # design (STRATEGY_AB.json); its comp_frac is recorded
+    check_quality("pmvs", pmvs["quality"], (LIMITS["rgb"][0], 0.0))
     check_quality("main", rgb["quality"], LIMITS["rgb"])
     log(f"[main] round bar acc_mean {ACC_MEAN_BAR} (E2E_r05.json): "
         f"{'met' if rgb['quality']['acc_mean'] <= ACC_MEAN_BAR else 'missed'}")
@@ -466,7 +535,7 @@ def main() -> int:
         raise RuntimeError("chip_smoke needs CUDA: torch.cuda.is_available() is False")
     sys.path.insert(0, REPO)
     from mvskit_tpu_torch import get_device
-    from mvskit_tpu_torch.ops import _build
+    from mvskit_tpu_torch.ops import _build, cuda_ncc
 
     dev = get_device("cuda")
     card = card_line()
@@ -484,19 +553,43 @@ def main() -> int:
     log(f"[kernel] phase {time.time() - t0:.2f} s")
     with tempfile.TemporaryDirectory(prefix="mvskit_smoke_") as work:
         paths = paths_phase(dev, work)
+        t0 = time.time()
+        bench, bench_launches = bench_phase(dev)
+        log(f"[bench] phase {time.time() - t0:.2f} s")
+        paths["pmvs"] = pmvs_phase(dev, work)
     check_paths(paths)
+    for form in ("fused", "luma_fused", *(f"ablate_{a}" for a in cuda_ncc.ABLATIONS[1:])):
+        if bench_launches[form] <= 0:
+            raise AssertionError(f"bench path missed {form}: {bench_launches}")
 
     path_of = {"ungrouped": "rgb", "grouped": "rgb", "luma_grouped": "luma",
                "luma_ungrouped": "luma_ungrouped"}
     kernels = []
-    for name, form, *_ in KERNELS:
+    for name, form, _, _, _, fused in KERNELS:
         r = records[name]
         kernels.append({
             "name": name, "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": REPLACES, "launches": paths[path_of[form]]["launches"][form],
+            "replaces": REPLACES_FUSED if fused else REPLACES,
+            "launches": bench_launches[form] if fused else paths[path_of[form]]["launches"][form],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
+        })
+    # one entry per ablation switch: its grouped RGB run on the bench
+    # path, with the grouped luma run beside it
+    for rec in bench:
+        if not rec["ablate"]:
+            continue
+        rgb, luma = rec["rgb"], rec["luma"]
+        kernels.append({
+            "name": f"sample_windows_ablate_{rec['ablate']}", "route": "cuda",
+            "source": KERNEL_SOURCE, "replaces": REPLACES_ABLATE,
+            "launches": bench_launches[f"ablate_{rec['ablate']}"],
+            "max_abs_err": max(rgb["max_abs_err"], luma["max_abs_err"]),
+            "ms": rgb["ms"], "plain_ms": rgb["plain_ms"], "bound_ms": rgb["bound_ms"],
+            "bound_by": rgb["bound_by"], "library_ms": None, "windows": rec["windows"],
+            "group": rec["group"], "luma_ms": luma["ms"], "luma_plain_ms": luma["plain_ms"],
+            "luma_bound_ms": luma["bound_ms"],
         })
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -50,13 +50,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="random-search rounds per refinement")
     p.add_argument("--refine-cands", type=int, default=None,
                    help="candidates per refinement round")
+    p.add_argument("--strategy", default=None, choices=("pm_image", "pmvs"),
+                   help="propagation strategy (reference live path "
+                        "pm_image, or the PMVS-style expansion)")
     p.add_argument("--report", default=None,
                    help="write a JSON run report (stage seconds, alive "
                         "counts, filter kills) to this path")
     return p
 
 
-# flag -> MVSConfig field (the JAX CLI's overrides, cli.py:87-100)
+# flag -> MVSConfig field (the JAX CLI's overrides, cli.py:87-102)
 OVERRIDES = (
     ("iterations", "n_iterations"),
     ("prop_rounds", "prop_rounds"),
@@ -65,6 +68,7 @@ OVERRIDES = (
     ("chunk", "gauntlet_chunk"),
     ("refine_rounds", "refine_rounds"),
     ("refine_cands", "refine_cands"),
+    ("strategy", "strategy"),
 )
 
 
@@ -95,7 +99,7 @@ def main(argv=None) -> int:
     print(f"wrote {out}.ply", file=sys.stderr)
     if args.report:
         report = dict(engine.report, device=str(engine.device),
-                      final_alive=engine.table.n_alive(),
+                      strategy=cfg.strategy, final_alive=engine.table.n_alive(),
                       prop_params=engine.prop_params._asdict())
         with open(args.report, "w") as f:
             json.dump(report, f, indent=1)

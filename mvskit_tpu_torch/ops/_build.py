@@ -89,10 +89,13 @@ def load_library() -> ctypes.CDLL:
             ints = ctypes.POINTER(ctypes.c_int)
             common = [ptr, i32, ints, ints, ints, i32,
                       ptr, ptr, ptr, ptr, ptr, ptr, i32, i32]
-            for form in ("", "luma_"):
-                ung = getattr(lib, f"mvs_sample_windows_{form}ungrouped")
-                ung.argtypes, ung.restype = common + [ptr], i32
-                grp = getattr(lib, f"mvs_sample_windows_{form}grouped")
-                grp.argtypes, grp.restype = common + [i32, ptr], i32
+            for chans in ("", "luma_"):
+                # ungrouped: (..., ablate, stream); grouped and fused:
+                # (..., group, ablate, stream)
+                ung = getattr(lib, f"mvs_sample_windows_{chans}ungrouped")
+                ung.argtypes, ung.restype = common + [i32, ptr], i32
+                for form in ("grouped", "fused"):
+                    fn = getattr(lib, f"mvs_sample_windows_{chans}{form}")
+                    fn.argtypes, fn.restype = common + [i32, i32, ptr], i32
             _lib = lib
         return _lib

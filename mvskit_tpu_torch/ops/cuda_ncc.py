@@ -11,10 +11,13 @@ from ``Scene.planes_luma_quad``.
 
 ``sample_windows`` routes by device: a CUDA tensor launches the kernel
 of ``csrc/sample_windows.cu`` (ungrouped, or grouped when ``group`` > 1
-divides the batch), a CPU tensor runs the plain version
-(``sample_windows_plain`` / ``sample_windows_luma_plain``), the same
-arithmetic on the gather path. ``LAUNCHES`` counts kernel launches per
-form.
+divides the batch, or fused with ``fused``), a CPU tensor runs the plain
+version (``sample_windows_plain`` / ``sample_windows_luma_plain``), the
+same arithmetic on the gather path. ``ablate`` names one of the
+measurement switches of the JAX kernel (``ABLATIONS``), each of which
+drops one stage of the work and has a defined output that its plain
+version repeats. ``LAUNCHES`` counts kernel launches per form, and
+ablated launches per switch.
 """
 
 from __future__ import annotations
@@ -26,8 +29,13 @@ import torch
 from ..image.scene import Scene
 from . import sampling
 
+# the JAX kernel's `ablate` settings (pallas_ncc.py:194-200), in the
+# order of csrc/sample_windows.cu's Ablate enum
+ABLATIONS = ("", "nodma", "nocompute", "norot", "nowx", "nomm")
+
 LAUNCHES = {"ungrouped": 0, "grouped": 0, "luma_ungrouped": 0,
-            "luma_grouped": 0}
+            "luma_grouped": 0, "fused": 0, "luma_fused": 0,
+            **{f"ablate_{a}": 0 for a in ABLATIONS[1:]}}
 
 # the TPU kernel's grouped form needs group | 128 (W_BLK); the same
 # rule picks the launch form here (pallas_ncc.py:609-610)
@@ -39,10 +47,13 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def lattice(tl, dx, dy, wsize: int):
+def lattice(tl, dx, dy, wsize: int, origin: bool = False):
     """Sample coordinates [B, S] of each window's lattice,
-    s = j * wsize + i -> tl + dx * i + dy * j (JAX ncc.py:408-412)."""
+    s = j * wsize + i -> tl + dx * i + dy * j (JAX ncc.py:408-412).
+    With `origin` every sample takes i = j = 0 (the `nowx` switch)."""
     xs = torch.arange(wsize, dtype=torch.float32, device=tl.device)
+    if origin:
+        xs = torch.zeros_like(xs)
     lat_x = xs.repeat(wsize).unsqueeze(0)              # i = s % wsize
     lat_y = xs.repeat_interleave(wsize).unsqueeze(0)   # j = s // wsize
     gx = tl[:, 0:1] + dx[:, 0:1] * lat_x + dy[:, 0:1] * lat_y
@@ -50,31 +61,97 @@ def lattice(tl, dx, dy, wsize: int):
     return gx, gy
 
 
-def sample_windows_plain(scene: Scene, idx, lvl, tl, dx, dy, wsize: int,
-                         illum: int = 0):
-    """Plain PyTorch version of the RGB kernel, on the gather path
-    (``sampling.sample_color_ch_packed``). Returns [B, 3 * S] f32."""
+def _check_ablate(ablate: str) -> None:
+    if ablate not in ABLATIONS:
+        raise ValueError(f"unknown ablate {ablate!r}; expected one of {ABLATIONS}")
+
+
+def _byte(v, k: int):
+    return ((v >> (8 * k)) & 0xFF).to(torch.float32)
+
+
+def _ablated_taps(planes, scene: Scene, image_idx, x, y, level, illum, n_taps,
+                  ablate: str):
+    """The taps the kernel reads under `ablate` (zeros for nodma) and the
+    tap fractions (lx, ly, dx0, dx1, dy0, dy1)."""
+    flat = planes.reshape(-1)
+    ni, t = planes.shape[1], planes.shape[2]
+    off, w, h = sampling._level_meta(scene, level)
+    frac = sampling._bilinear_frac(x, y, w, h)
+    lx, ly = frac[:2]
+    base = ((image_idx * ni + illum) * t + off + ly * w + lx).long()
+    wl = w.long()
+    offsets = (0, 1, wl, wl + 1)[:n_taps]
+    if ablate == "nodma":
+        taps = [torch.zeros_like(base, dtype=torch.int32) for _ in offsets]
+    else:
+        taps = [flat[base + d] for d in offsets]
+    return taps, frac
+
+
+def _rgb_ablated(scene: Scene, image_idx, x, y, level, illum, ablate: str):
+    """sampling.sample_color_ch_packed under nodma / nocompute / nomm:
+    channel-leading [3, ...]."""
+    taps, (_, _, dx0, dx1, dy0, dy1) = _ablated_taps(
+        scene.planes_packed, scene, image_idx, x, y, level, illum, 4, ablate)
+    if ablate == "nocompute":
+        return torch.stack([_byte(taps[0], k) for k in range(3)])
+    if ablate == "nomm":
+        weights = (None,) * 4
+    else:
+        weights = (dx0 * dy0, dx1 * dy0, dx0 * dy1, dx1 * dy1)
+    chans = []
+    for k in range(3):
+        acc = 0.0
+        for v, wgt in zip(taps, weights):
+            acc = acc + (_byte(v, k) if wgt is None else _byte(v, k) * wgt)
+        chans.append(acc)
+    return torch.stack(chans)
+
+
+def _luma_ablated(scene: Scene, image_idx, x, y, level, illum, ablate: str):
+    """sampling.sample_luma_quad under nodma / nocompute / nomm: [1, ...]."""
+    (v,), (_, _, dx0, dx1, dy0, dy1) = _ablated_taps(
+        scene.planes_luma_quad, scene, image_idx, x, y, level, illum, 1, ablate)
+    y00, y10, y01, y11 = (_byte(v, k) for k in range(4))
+    if ablate == "nocompute":
+        out = y00
+    elif ablate == "nomm":
+        out = y00 + y10 + y01 + y11
+    else:
+        out = y00 * dx0 * dy0 + y10 * dx1 * dy0 + y01 * dx0 * dy1 + y11 * dx1 * dy1
+    return out.unsqueeze(0)
+
+
+def _plain(scene: Scene, idx, lvl, tl, dx, dy, wsize: int, illum: int,
+           luma: bool, ablate: str):
+    """[C, B, S] samples of the gather path under `ablate`."""
+    _check_ablate(ablate)
     B = idx.shape[0]
     S = wsize * wsize
-    gx, gy = lattice(tl, dx, dy, wsize)
-    tex = sampling.sample_color_ch_packed(
-        scene, idx.unsqueeze(1).expand(B, S), gx, gy,
-        lvl.unsqueeze(1).expand(B, S), illum,
-    )  # [3, B, S]
-    return tex.permute(1, 0, 2).reshape(B, 3 * S)
+    gx, gy = lattice(tl, dx, dy, wsize, origin=ablate == "nowx")
+    ii = idx.unsqueeze(1).expand(B, S)
+    ll = lvl.unsqueeze(1).expand(B, S)
+    if ablate in ("nodma", "nocompute", "nomm"):
+        fn = _luma_ablated if luma else _rgb_ablated
+        return fn(scene, ii, gx, gy, ll, illum, ablate)
+    fn = sampling.sample_luma_quad if luma else sampling.sample_color_ch_packed
+    return fn(scene, ii, gx, gy, ll, illum)
+
+
+def sample_windows_plain(scene: Scene, idx, lvl, tl, dx, dy, wsize: int,
+                         illum: int = 0, ablate: str = ""):
+    """Plain PyTorch version of the RGB kernel, on the gather path
+    (``sampling.sample_color_ch_packed``). Returns [B, 3 * S] f32."""
+    tex = _plain(scene, idx, lvl, tl, dx, dy, wsize, illum, False, ablate)
+    return tex.permute(1, 0, 2).reshape(idx.shape[0], -1)
 
 
 def sample_windows_luma_plain(scene: Scene, idx, lvl, tl, dx, dy,
-                              wsize: int, illum: int = 0):
+                              wsize: int, illum: int = 0, ablate: str = ""):
     """Plain PyTorch version of the luma kernel, on the gather path
     (``sampling.sample_luma_quad``). Returns [B, S] f32."""
-    B = idx.shape[0]
-    S = wsize * wsize
-    gx, gy = lattice(tl, dx, dy, wsize)
-    return sampling.sample_luma_quad(
-        scene, idx.unsqueeze(1).expand(B, S), gx, gy,
-        lvl.unsqueeze(1).expand(B, S), illum,
-    )[0]
+    return _plain(scene, idx, lvl, tl, dx, dy, wsize, illum, True, ablate)[0]
 
 
 def _planes(scene: Scene, luma: bool):
@@ -82,7 +159,8 @@ def _planes(scene: Scene, luma: bool):
 
 
 def _check(scene: Scene, idx, lvl, tl, dx, dy, wsize: int, illum: int,
-           luma: bool):
+           luma: bool, ablate: str):
+    _check_ablate(ablate)
     B = idx.shape[0]
     planes = _planes(scene, luma)
     name = "planes_luma_quad" if luma else "planes_packed"
@@ -111,8 +189,19 @@ def _check(scene: Scene, idx, lvl, tl, dx, dy, wsize: int, illum: int,
         raise ValueError(f"wsize {wsize} out of range")
 
 
+def launch_form(B: int, group: int, luma: bool, fused: bool) -> str:
+    """The kernel form a batch of B windows launches: grouped (or fused)
+    where group > 1 divides both 128 and B, as the JAX kernel's rule
+    (pallas_ncc.py:609-610) decides, else ungrouped."""
+    if group > 1 and _W_BLK % group == 0 and B % group == 0:
+        form = "fused" if fused else "grouped"
+    else:
+        form = "ungrouped"
+    return ("luma_" if luma else "") + form
+
+
 def _launch(scene: Scene, idx, lvl, tl, dx, dy, wsize: int, illum: int,
-            group: int, luma: bool):
+            group: int, luma: bool, fused: bool, ablate: str):
     from . import _build
 
     lib = _build.load_library()
@@ -134,35 +223,40 @@ def _launch(scene: Scene, idx, lvl, tl, dx, dy, wsize: int, illum: int,
         B, wsize,
     )
     stream = ctypes.c_void_p(torch.cuda.current_stream(tl.device).cuda_stream)
-    prefix = "luma_" if luma else ""
-    if group > 1 and _W_BLK % group == 0 and B % group == 0:
-        form = prefix + "grouped"
-        err = getattr(lib, f"mvs_sample_windows_{form}")(*args, group, stream)
+    form = launch_form(B, group, luma, fused)
+    switch = ABLATIONS.index(ablate)
+    fn = getattr(lib, f"mvs_sample_windows_{form}")
+    if form.endswith("ungrouped"):
+        err = fn(*args, switch, stream)
     else:
-        form = prefix + "ungrouped"
-        err = getattr(lib, f"mvs_sample_windows_{form}")(*args, stream)
+        err = fn(*args, group, switch, stream)
     if err != 0:
-        raise RuntimeError(f"sample_windows {form} launch failed: CUDA error {err}")
-    LAUNCHES[form] += 1
+        raise RuntimeError(f"sample_windows {form} (ablate {ablate!r}) launch "
+                           f"failed: CUDA error {err}")
+    LAUNCHES[f"ablate_{ablate}" if ablate else form] += 1
     return out
 
 
 def sample_windows(scene: Scene, idx, lvl, tl, dx, dy, wsize: int,
-                   illum: int = 0, group: int = 1, luma: bool = False):
+                   illum: int = 0, group: int = 1, luma: bool = False,
+                   fused: bool = False, ablate: str = ""):
     """Raw windows for a flat batch of B windows.
 
     idx [B] int32 view index, lvl [B] int32 resolved pyramid level,
     tl / dx / dy [B, 2] f32 lattice origin and steps at that level.
     `group` > 1 declares that every `group` consecutive windows are
     candidates of one (patch, view), which the kernel's grouped form
-    serves together. Returns (out [B, 3 * S] f32, or [B, S] with `luma`,
+    serves together; `fused` serves such a group with the fused form
+    (the JAX kernel's fused=True, the same output). `ablate` is one of
+    ``ABLATIONS``. Returns (out [B, 3 * S] f32, or [B, S] with `luma`,
     fit [B] bool, all true)."""
-    _check(scene, idx, lvl, tl, dx, dy, wsize, illum, luma)
+    _check(scene, idx, lvl, tl, dx, dy, wsize, illum, luma, ablate)
     if tl.device.type == "cuda":
-        out = _launch(scene, idx, lvl, tl, dx, dy, wsize, illum, group, luma)
+        out = _launch(scene, idx, lvl, tl, dx, dy, wsize, illum, group, luma,
+                      fused, ablate)
     elif tl.device.type == "cpu":
         plain = sample_windows_luma_plain if luma else sample_windows_plain
-        out = plain(scene, idx, lvl, tl, dx, dy, wsize, illum)
+        out = plain(scene, idx, lvl, tl, dx, dy, wsize, illum, ablate)
     else:
         raise ValueError(f"sample_windows: unsupported device {tl.device}")
     fit = torch.ones(idx.shape[0], dtype=torch.bool, device=tl.device)

@@ -121,12 +121,46 @@ def sample_color(scene: Scene, image_idx, x, y, level, illum=0):
     return sample_color_ch(scene, image_idx, x, y, level, illum).movedim(0, -1)
 
 
+def _bicubic_w0(f):
+    """Weight at offset -1 (image.cpp:345-446: (((-1)g+5)g-8)g+4 at g=1+f)."""
+    g = 1.0 + f
+    return ((-g + 5.0) * g - 8.0) * g + 4.0
+
+
+def _bicubic_w1(f):
+    """Weight at offset 0."""
+    return ((f - 2.0) * f) * f + 1.0
+
+
 def sample_color_bicubic(scene: Scene, image_idx, x, y, level, illum=0):
-    """Bicubic sampling is not ported yet (ROADMAP Queue 1 item 14)."""
-    raise NotImplementedError(
-        "bicubic sampling is not ported to mvskit_tpu_torch yet "
-        "(ROADMAP Queue 1 item 14)"
-    )
+    """Bicubic color fetch (image.cpp:345-446, the PMMVPS_IMAGE_BICUBIC
+    variant; JAX sampling.py:188-232): 4x4 taps from the float planes
+    with the reference's weight polynomials, summed row by row in the
+    JAX package's order. Channel-leading [3, ...]."""
+    flat = scene.planes.reshape(-1)
+    ni, t = scene.planes.shape[1], scene.planes.shape[2]
+    off, w, h = _level_meta(scene, level)
+    x = torch.as_tensor(x, dtype=torch.float32, device=scene.device)
+    y = torch.as_tensor(y, dtype=torch.float32, device=scene.device)
+    x1 = torch.minimum(torch.clamp(_trunc_i32(torch.floor(x)), min=1), w - 3)
+    y1 = torch.minimum(torch.clamp(_trunc_i32(torch.floor(y)), min=1), h - 3)
+    p = torch.clamp(x - x1.to(x.dtype), 0.0, 1.0)
+    q = torch.clamp(y - y1.to(y.dtype), 0.0, 1.0)
+    wx = (_bicubic_w0(p), _bicubic_w1(p), _bicubic_w1(1.0 - p), _bicubic_w0(1.0 - p))
+    wy = (_bicubic_w0(q), _bicubic_w1(q), _bicubic_w1(1.0 - q), _bicubic_w0(1.0 - q))
+    img = torch.as_tensor(image_idx, dtype=torch.int32, device=scene.device)
+    base = ((img * ni + illum) * t + off + (y1 - 1) * w + (x1 - 1)).long() * 3
+    row = (w * 3).long()
+    chans = []
+    for c in range(3):
+        acc = 0.0
+        for j in range(4):
+            rowacc = 0.0
+            for i in range(4):
+                rowacc = rowacc + flat[base + c + j * row + i * 3] * wx[i]
+            acc = acc + rowacc * wy[j]
+        chans.append(acc)
+    return torch.stack(chans, dim=0)
 
 
 def sample_mask(scene: Scene, image_idx, x, y, level):

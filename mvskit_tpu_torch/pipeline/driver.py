@@ -27,6 +27,7 @@ from ..device import get_device
 from ..image.scene import Scene, load_scene
 from ..io import patch_io, ply
 from ..ops import sampling
+from . import expand as ex
 from . import filters as fl
 from . import propagate as pr
 from . import seed as seedmod
@@ -35,11 +36,11 @@ from . import seed as seedmod
 def check_supported(cfg: MVSConfig) -> None:
     """Raise NotImplementedError for options the port does not cover yet
     (each names the ROADMAP item that ports it), and ValueError for a
-    negative refine_rgb_tail with luma_refine (the JAX package's scan
-    breaks on it)."""
+    strategy other than pm_image and pmvs or a negative refine_rgb_tail
+    with luma_refine (the JAX package's scan breaks on it)."""
+    if cfg.strategy not in ("pm_image", "pmvs"):
+        raise ValueError(f"unknown strategy {cfg.strategy!r}")
     unsupported = []
-    if cfg.strategy != "pm_image":
-        unsupported.append(f"strategy={cfg.strategy!r} (ROADMAP Queue 1 item 14)")
     if cfg.refine_grad_steps > 0:
         unsupported.append("refine_grad_steps > 0 (retired; GRADPOLISH.json)")
     if cfg.mesh_dp * cfg.mesh_view * cfg.mesh_tile > 1:
@@ -80,9 +81,10 @@ class PMMVS:
 
     device: "cuda" or "cpu", explicit (``device.get_device`` raises when
     CUDA is asked for and absent). noise: the run's source of random
-    numbers, an object whose ``round()`` returns a
-    ``propagate.RoundNoise``; by default a ``TorchNoise`` on a
-    ``torch.Generator`` seeded with 0 (the JAX driver's PRNGKey(0))."""
+    numbers, an object whose ``round()`` (a pm_image round) and
+    ``expand_round()`` (a pmvs round) return a ``propagate.RoundNoise``;
+    by default a ``TorchNoise`` on a ``torch.Generator`` seeded with 0
+    (the JAX driver's PRNGKey(0))."""
 
     def __init__(self, cfg: MVSConfig, scene: Optional[Scene] = None,
                  log=print, device="cuda", noise=None):
@@ -171,24 +173,44 @@ class PMMVS:
         self.log(f"seeded {n} patches")
 
     def propagate(self, iteration: int) -> pr.RoundStats:
-        """One outer expansion phase: cfg.prop_rounds checkerboard rounds,
-        sweep direction from the iteration parity (propagate.cpp:80-85)."""
+        """One outer expansion phase: cfg.prop_rounds rounds of the
+        configured strategy, "pm_image" checkerboard propagation (sweep
+        direction from the iteration parity, propagate.cpp:80-85) or
+        "pmvs" scene-space expansion (propagate.cpp:384-691), whose
+        effort counters reset every phase (clearCounts, propagate.cpp:36).
+        Each round takes its random numbers from ``self.noise.round()``,
+        or ``self.noise.expand_round()`` for pmvs."""
         direction = 1 if iteration % 2 == 0 else -1
         N = self.table.capacity
         p = self.prop_params
+        pmvs = self.cfg.strategy == "pmvs"
+        if pmvs:
+            state = ex.init_state(self.scene, self.cfg.level, self.cfg.csize)
+            hypotheses = max(self.cfg.donor_budget // ex.N_SECTORS, 1) * ex.N_SECTORS
+        else:
+            hypotheses = 2 * self.cfg.donor_budget
         total = pr.RoundStats(0, 0, 0, 0)
         for _ in range(self.cfg.prop_rounds):
             # live-row bound: grows at most by the accepted hypotheses of
             # a round (insertions fill the lowest dead rows first)
             rl = pow2_limit(max(self._row_bound or N, 1), N)
-            self.table, stats = pr.propagate_round(
-                self.scene, self.table, self.noise.round(), p, direction,
-                self.ncc_threshold, self.ncc_threshold_before,
-                use_depth=self.depth > 0,
-                quad_threshold=self.cfg.quad_threshold, row_limit=rl,
-            )
+            common = dict(ncc_threshold=self.ncc_threshold,
+                          ncc_threshold_before=self.ncc_threshold_before,
+                          use_depth=self.depth > 0,
+                          quad_threshold=self.cfg.quad_threshold, row_limit=rl)
+            if pmvs:
+                self.table, state, stats = ex.expand_round(
+                    self.scene, self.table, state, self.noise.expand_round(), p,
+                    count_threshold=self.count_threshold1, depth=self.depth,
+                    **common,
+                )
+            else:
+                self.table, stats = pr.propagate_round(
+                    self.scene, self.table, self.noise.round(), p, direction,
+                    **common,
+                )
             if self._row_bound is not None:
-                self._row_bound = min(N, self._row_bound + 2 * self.cfg.donor_budget)
+                self._row_bound = min(N, self._row_bound + hypotheses)
             total = pr.RoundStats(*(a + b for a, b in zip(total, stats)))
         self.log(
             f"iter {iteration}: total {total.total} pass {total.passed} "

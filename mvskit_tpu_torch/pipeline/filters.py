@@ -37,6 +37,13 @@ def _ref_unit(scene: Scene, table: PatchTable, idx, level: int):
     return cam.get_unit(scene.cams, ref, table.coord[idx], level)
 
 
+def score2(table: PatchTable, ncc_threshold):
+    """Patch::score2 (patch.cpp:27-29): max(0, ncc - threshold) times
+    the number of views."""
+    return (torch.clamp(table.ncc - ncc_threshold, min=0.0)
+            * count_valid(table.images).to(torch.float32))
+
+
 def is_neighbor_pairs(scene: Scene, table: PatchTable, a_idx, b_idx, hunit,
                       threshold, radius=None):
     """isNeighbor / isNeighborRadius (pmmvps.cpp:117-180) for index

@@ -96,6 +96,9 @@ class TorchNoise:
     def round(self) -> "TorchNoise":
         return self
 
+    def expand_round(self) -> "TorchNoise":
+        return self
+
     def _uniform(self, shape, lo: float, hi: float) -> torch.Tensor:
         u = torch.rand(shape, generator=self.generator, device=self.device,
                        dtype=torch.float32)

@@ -8,7 +8,9 @@ conftest:
 Tolerances: the RGB kernel equals its plain version (same arithmetic,
 each operation rounded alone) — checked to 1e-3 on the 0-255 scale, the
 bound chip_smoke.py also states; the luma kernel equals its plain
-version bit for bit; grouped equals ungrouped bit for bit.
+version bit for bit; grouped and fused (K4) equal ungrouped bit for bit;
+every ablation switch (K5) in every launch form equals its plain
+version bit for bit.
 The pipeline on the card against the same pipeline on the CPU, fed the
 same random numbers: alive counts within 3 % (reductions sum in another
 order on the card, which can flip a near-tie accept/reject)."""
@@ -29,6 +31,12 @@ def card():
     from mvskit_tpu_torch import get_device
 
     return get_device("cuda")
+
+
+def _no_launches():
+    from mvskit_tpu_torch.ops import cuda_ncc
+
+    return {k: 0 for k in cuda_ncc.LAUNCHES}
 
 
 def _windows(scene, n_patch=64, n_cands=32):
@@ -65,8 +73,7 @@ def test_kernel_forms_match_plain(card):
     odd, _ = cuda_ncc.sample_windows(scene, *(a[:-1] for a in args), WSIZE, group=32)
     torch.cuda.synchronize()
     plain = cuda_ncc.sample_windows_plain(scene, *args, WSIZE)
-    assert cuda_ncc.LAUNCHES == {"ungrouped": 2, "grouped": 1,
-                                 "luma_ungrouped": 0, "luma_grouped": 0}
+    assert cuda_ncc.LAUNCHES == dict(_no_launches(), ungrouped=2, grouped=1)
     assert fit.all()
     assert (ung - plain).abs().max().item() <= 1e-3
     assert torch.equal(ung.view(torch.int32), grp.view(torch.int32))
@@ -90,12 +97,66 @@ def test_luma_kernel_forms_match_plain_bitwise(card):
                                      luma=True)
     torch.cuda.synchronize()
     plain = cuda_ncc.sample_windows_luma_plain(scene, *args, WSIZE)
-    assert cuda_ncc.LAUNCHES == {"ungrouped": 0, "grouped": 0,
-                                 "luma_ungrouped": 2, "luma_grouped": 1}
+    assert cuda_ncc.LAUNCHES == dict(_no_launches(), luma_ungrouped=2, luma_grouped=1)
     assert fit.all() and ung.shape == (args[0].shape[0], WSIZE * WSIZE)
     assert torch.equal(_bits(ung), _bits(plain))
     assert torch.equal(_bits(grp), _bits(ung))
     assert torch.equal(_bits(odd), _bits(ung[:-1]))
+
+
+def test_fused_forms_match_grouped_and_plain_bitwise(card):
+    """K4 in both channel modes at group 2 (float stores), 32 and 128
+    (75 KB of dynamic shared memory for RGB); a group whose outputs pass
+    the block's shared-memory limit raises."""
+    from mvskit_tpu_torch.ops import cuda_ncc
+    from mvskit_tpu_torch.utils import synthetic
+
+    _, _, scene = synthetic.plane_scene(n_views=6, width=160, height=120, device=card)
+    args = _windows(scene)
+    for luma, plain_fn in ((False, cuda_ncc.sample_windows_plain),
+                           (True, cuda_ncc.sample_windows_luma_plain)):
+        cuda_ncc.reset_launches()
+        ung, _ = cuda_ncc.sample_windows(scene, *args, WSIZE, luma=luma)
+        for group in (2, 32, 128):
+            fused, fit = cuda_ncc.sample_windows(scene, *args, WSIZE, group=group,
+                                                 luma=luma, fused=True)
+            torch.cuda.synchronize()
+            assert fit.all() and torch.equal(_bits(fused), _bits(ung)), (luma, group)
+        plain = plain_fn(scene, *args, WSIZE)
+        assert torch.equal(_bits(ung), _bits(plain))
+        form = "luma_fused" if luma else "fused"
+        assert cuda_ncc.LAUNCHES == dict(_no_launches(), **{
+            form: 3, ("luma_ungrouped" if luma else "ungrouped"): 1})
+    # 15 x 15 RGB windows at group 128: 345,600 B of outputs per block
+    with pytest.raises(RuntimeError, match="fused"):
+        cuda_ncc.sample_windows(scene, *args, 15, group=128, fused=True)
+
+
+def test_ablation_switches_match_plain_bitwise(card):
+    """K5: every switch in every launch form and channel mode equals its
+    plain version bit for bit; norot equals the normal output."""
+    from mvskit_tpu_torch.ops import cuda_ncc
+    from mvskit_tpu_torch.utils import synthetic
+
+    _, _, scene = synthetic.plane_scene(n_views=6, width=160, height=120, device=card)
+    args = _windows(scene, n_patch=16)
+    cuda_ncc.reset_launches()
+    for ablate in cuda_ncc.ABLATIONS[1:]:
+        for luma, plain_fn in ((False, cuda_ncc.sample_windows_plain),
+                               (True, cuda_ncc.sample_windows_luma_plain)):
+            plain = plain_fn(scene, *args, WSIZE, ablate=ablate)
+            for group, fused in ((1, False), (32, False), (32, True)):
+                out, _ = cuda_ncc.sample_windows(scene, *args, WSIZE, group=group,
+                                                 luma=luma, fused=fused, ablate=ablate)
+                torch.cuda.synchronize()
+                assert torch.equal(_bits(out), _bits(plain)), (ablate, luma, group, fused)
+    assert cuda_ncc.LAUNCHES == dict(_no_launches(), **{
+        f"ablate_{a}": 6 for a in cuda_ncc.ABLATIONS[1:]})
+    normal, _ = cuda_ncc.sample_windows(scene, *args, WSIZE, group=32)
+    norot, _ = cuda_ncc.sample_windows(scene, *args, WSIZE, group=32, ablate="norot")
+    assert torch.equal(_bits(norot), _bits(normal))
+    with pytest.raises(ValueError, match="ablate"):
+        cuda_ncc.sample_windows(scene, *args, WSIZE, ablate="noflop")
 
 
 def test_kernels_read_the_asked_illumination(card):

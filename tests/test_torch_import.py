@@ -50,7 +50,8 @@ def test_cli_help_without_jax():
     assert "--device" in res.stdout and "--filter-only" in res.stdout
     assert "--mesh" not in res.stdout
     for flag in ("--iterations", "--prop-rounds", "--no-snapshots", "--max-patches",
-                 "--donor-budget", "--chunk", "--refine-rounds", "--refine-cands"):
+                 "--donor-budget", "--chunk", "--refine-rounds", "--refine-cands",
+                 "--strategy"):
         assert flag in res.stdout, flag
 
 
@@ -104,7 +105,6 @@ def test_get_device_is_explicit():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("strategy", "pmvs"),
     ("refine_grad_steps", 2),
     ("mesh_view", 2),
 ])
@@ -122,6 +122,7 @@ def test_unported_options_raise(field, value):
 @pytest.mark.parametrize("field,value", [
     ("luma_refine", True),
     ("nillums", 3),
+    ("strategy", "pmvs"),
 ])
 def test_ported_options_accepted(field, value):
     from mvskit_tpu_torch.config import MVSConfig

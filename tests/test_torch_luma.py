@@ -10,7 +10,7 @@ Tolerances and why:
     (one float32 bilinear sum per sample, evaluated in the same order);
   * normalized windows and incc_cost: 2e-4, the golden-parity bound;
   * vs the Pallas luma kernel in interpret mode where its `fit` is
-    true: 1e-2, the Pallas test's own bound (tests/test_pallas_ncc.py:
+    true, unfused and fused (K4): 1e-2, the Pallas test's own bound (tests/test_pallas_ncc.py:
     57, 92 — its one-hot matmul sums in another order);
   * refinement: coord and normal 1e-4, ncc 2e-4, on >= 99 % of rows (an
     argmin over near-equal candidate costs may flip);
@@ -136,6 +136,16 @@ def test_luma_windows_and_costs_match_jax(scenes, group):
 
 @pytest.mark.parametrize("group", [1, 32])
 def test_luma_plain_matches_pallas_interpret(scenes, group):
+    _check_luma_pallas_interpret(scenes, group, fused=False)
+
+
+def test_luma_fused_matches_pallas_interpret_fused(scenes):
+    """K4 in luma mode: the JAX kernel's fused form against the port's
+    fused luma launch (its plain version on the CPU)."""
+    _check_luma_pallas_interpret(scenes, 32, fused=True)
+
+
+def _check_luma_pallas_interpret(scenes, group, fused):
     Ps, js, ts = scenes
     coord, normal = jsyn.plane_points(Ps, 8, seed=6, extent=0.5)
     rng = np.random.default_rng(6)
@@ -147,11 +157,11 @@ def test_luma_plain_matches_pallas_interpret(scenes, group):
     pout, pfit = pk.sample_windows(
         pk.luma_levels_from_scene(js), jnp.asarray(idx), jnp.asarray(lvl),
         jnp.asarray(tl), jnp.asarray(dx), jnp.asarray(dy), wsize=WSIZE,
-        rgb=False, interpret=True, group=group,
+        rgb=False, interpret=True, group=group, fused=fused,
     )
     pout, pfit = np.asarray(pout), np.asarray(pfit)
     out, _ = cuda_ncc.sample_windows(ts, _t(idx), _t(lvl), _t(tl), _t(dx), _t(dy),
-                                     WSIZE, group=group, luma=True)
+                                     WSIZE, group=group, luma=True, fused=fused)
     both = pfit & valid.reshape(-1)
     assert both.sum() >= 128
     np.testing.assert_allclose(out.numpy()[both], pout[both, :S], atol=1e-2)

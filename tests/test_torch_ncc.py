@@ -4,9 +4,10 @@ built on it, against the JAX package on the same inputs.
 Tolerances and why:
   (a) raw samples vs JAX sample_windows_raw on the gather path: atol
       1e-3 on the 0-255 scale (float32 rounding of 4-tap sums);
-  (b) vs the Pallas kernel in interpret mode where its `fit` is true:
-      1e-2, the Pallas test's own bound (tests/test_pallas_ncc.py:57 —
-      its one-hot matmul sums in another order);
+  (b) vs the Pallas kernel in interpret mode where its `fit` is true,
+      unfused and fused (K4): 1e-2, the Pallas test's own bound
+      (tests/test_pallas_ncc.py:57 — its one-hot matmul sums in another
+      order);
   (c) compute_patch_ncc and (d) the NumPy oracle of
       tests/test_golden_parity.py: 2e-4, the golden-parity bound.
 The kernel itself is held to this plain version on the card
@@ -101,6 +102,17 @@ def test_plain_matches_jax_gather_path(scenes, group):
 
 @pytest.mark.parametrize("group", [1, 32])
 def test_plain_matches_pallas_interpret(scenes, group):
+    _check_pallas_interpret(scenes, group, fused=False)
+
+
+def test_fused_matches_pallas_interpret_fused(scenes):
+    """K4: the JAX kernel's fused form (one matmul and one store per
+    group) against the port's fused launch, which runs the plain version
+    on the CPU."""
+    _check_pallas_interpret(scenes, 32, fused=True)
+
+
+def _check_pallas_interpret(scenes, group, fused):
     Ps, js, ts = scenes
     coord, normal = _candidates(Ps, 8, 32, seed=6)  # 256 windows
     views = np.zeros((coord.shape[0], 1), np.int32)
@@ -110,12 +122,13 @@ def test_plain_matches_pallas_interpret(scenes, group):
     pout, pfit = pk.sample_windows(
         levels, jnp.asarray(idx), jnp.asarray(lvl), jnp.asarray(tl),
         jnp.asarray(dx), jnp.asarray(dy), wsize=WSIZE, rgb=True,
-        interpret=True, group=group,
+        interpret=True, group=group, fused=fused,
     )
     pout, pfit = np.asarray(pout), np.asarray(pfit)
     spad = pout.shape[1] // 3
     out, _ = cuda_ncc.sample_windows(
-        ts, _t(idx), _t(lvl), _t(tl), _t(dx), _t(dy), WSIZE, group=group
+        ts, _t(idx), _t(lvl), _t(tl), _t(dx), _t(dy), WSIZE, group=group,
+        fused=fused,
     )
     both = pfit & valid.reshape(-1)
     assert both.sum() >= 128
@@ -209,8 +222,7 @@ def test_wrapper_checks_and_counts_no_cpu_launch(scenes):
     cuda_ncc.reset_launches()
     out, fit = cuda_ncc.sample_windows(ts, idx, lvl, tl, d, d.flip(1).contiguous(), WSIZE)
     assert out.shape == (B, 3 * S) and fit.all()
-    assert cuda_ncc.LAUNCHES == {"ungrouped": 0, "grouped": 0,
-                                 "luma_ungrouped": 0, "luma_grouped": 0}
+    assert all(v == 0 for v in cuda_ncc.LAUNCHES.values())
     with pytest.raises(TypeError):
         cuda_ncc.sample_windows(ts, idx.long(), lvl, tl, d, d, WSIZE)
     with pytest.raises(ValueError):

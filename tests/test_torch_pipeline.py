@@ -148,5 +148,4 @@ def test_cli_cpu_filter_only_and_report(runs, tmp_path):
     assert os.path.exists(out + ".ply") and os.path.exists(out + ".patch")
     assert os.path.exists(report)
     # on the CPU the sampler runs its plain version: no kernel launch
-    assert cuda_ncc.LAUNCHES == {"ungrouped": 0, "grouped": 0,
-                                 "luma_ungrouped": 0, "luma_grouped": 0}
+    assert all(v == 0 for v in cuda_ncc.LAUNCHES.values())

@@ -2,7 +2,8 @@
 
 ``JaxReplayNoise`` walks the JAX driver's key tree (PMMVS._next_key ->
 propagate_round's 4-way split -> generate_hypotheses' jitter and the
-gauntlet's per-chunk, per-round refinement draws) with ``jax.random`` on
+gauntlet's per-chunk, per-round refinement draws; or, for a pmvs round,
+expand_round's key passed whole to the gauntlet) with ``jax.random`` on
 the CPU, and hands the port the same numbers as numpy-backed tensors.
 With it, ``mvskit_tpu_torch`` and ``mvskit_tpu`` consume identical
 random numbers in a whole run.
@@ -26,6 +27,19 @@ from mvskit_tpu_torch import interop
 torch.set_num_threads(1)
 
 
+def _gauntlet_draws(key, chunk, n_chunks, rounds, rows, n_cands) -> torch.Tensor:
+    """The refinement deltas of chunk `chunk` of a JAX
+    _gauntlet_chunked(key): the chunk's key split per round."""
+    ck = jax.random.split(key, n_chunks)[chunk]
+    keys = jax.random.split(ck, rounds)
+    return torch.from_numpy(np.stack([
+        np.asarray(jax.random.uniform(
+            keys[r], (rows, n_cands, 3), minval=-1.0, maxval=1.0
+        ))
+        for r in range(rounds)
+    ]))
+
+
 class _JaxRound:
     """The random numbers of one JAX propagate_round(key)."""
 
@@ -38,26 +52,37 @@ class _JaxRound:
         return torch.from_numpy(np.array(u))
 
     def refine(self, chunk, n_chunks, rounds, rows, n_cands) -> torch.Tensor:
-        ck = jax.random.split(self.k2, n_chunks)[chunk]
-        keys = jax.random.split(ck, rounds)
-        return torch.from_numpy(np.stack([
-            np.asarray(jax.random.uniform(
-                keys[r], (rows, n_cands, 3), minval=-1.0, maxval=1.0
-            ))
-            for r in range(rounds)
-        ]))
+        return _gauntlet_draws(self.k2, chunk, n_chunks, rounds, rows, n_cands)
+
+
+class JaxExpandRound:
+    """The random numbers of one JAX expand_round(key): the round hands
+    its key to _gauntlet_chunked whole (expand.py:229-232), with no
+    4-way split."""
+
+    def __init__(self, key):
+        self.key = key
+
+    def refine(self, chunk, n_chunks, rounds, rows, n_cands) -> torch.Tensor:
+        return _gauntlet_draws(self.key, chunk, n_chunks, rounds, rows, n_cands)
 
 
 class JaxReplayNoise:
     """Noise source replaying mvskit_tpu.pipeline.driver.PMMVS's keys
-    (PRNGKey(seed), one split per propagation round)."""
+    (PRNGKey(seed), one split per propagation or expansion round)."""
 
     def __init__(self, seed: int = 0):
         self.key = jax.random.PRNGKey(seed)
 
-    def round(self) -> _JaxRound:
+    def _next_key(self):
         self.key, sub = jax.random.split(self.key)
-        return _JaxRound(sub)
+        return sub
+
+    def round(self) -> _JaxRound:
+        return _JaxRound(self._next_key())
+
+    def expand_round(self) -> JaxExpandRound:
+        return JaxExpandRound(self._next_key())
 
 
 def refine_deltas(key, rounds: int, B: int, n_cands: int) -> np.ndarray:
