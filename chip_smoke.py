@@ -6,7 +6,9 @@
 Phases (any failure raises and the process exits non-zero):
   0. device: needs torch.cuda; prints the card's name and power limit
      (nvidia-smi) and the CUDA version;
-  1. build: compiles the kernel library from mvskit_tpu_torch/csrc;
+  1. build: compiles the kernel library from mvskit_tpu_torch/csrc and
+     prints ptxas's registers, shared memory and spills of every kernel
+     instance the script launches;
   2. kernels vs plain: the NCC window sampler's launch forms (RGB and
      luma, ungrouped, grouped and fused) against their plain PyTorch
      versions, bit for bit, at the shapes their paths give them on a
@@ -15,7 +17,9 @@ Phases (any failure raises and the process exits non-zero):
      luma ungrouped launch also on the 4096 x 6), the grouped and fused
      forms also against the ungrouped / grouped launch, with CUDA-event
      timings and each kernel's bound (least time for its bytes and
-     operations on an H100);
+     operations on an H100); the grouped records (K2, K3g) also carry
+     their launch plan (persistent grid, stages, store path), ptxas's
+     numbers, K4's time and each K5 switch's time on the same windows;
   3. RGB main path: writes the 16 x 640x480, 4096-seed plane dataset and
      runs `mvskit_tpu_torch.cli.main` with the default config (3
      iterations, 8 rounds, 6 x 32 RGB search, 2^18-row table);
@@ -84,6 +88,19 @@ KERNELS = (
     ("sample_windows_fused", "fused", "rgb", "grouped", N_CANDS, True),
     ("sample_windows_luma_fused", "luma_fused", "luma", "grouped", N_CANDS, True),
 )
+# the kernel instance (ptxas name) behind each record, and every
+# instance the script launches: WS = 7 and every K5 switch on the
+# grouped forms (bench path), the normal switch on the others
+INSTANCE = {
+    "sample_windows_ungrouped": "sample_windows_ungrouped_kernel<0>",
+    "sample_windows_grouped": f"grouped_kernel<3, {WSIZE}, 0>",
+    "sample_windows_luma_ungrouped": "sample_windows_luma_ungrouped_kernel<0>",
+    "sample_windows_luma_grouped": f"grouped_kernel<1, {WSIZE}, 0>",
+    "sample_windows_fused": "sample_windows_fused_kernel<3, 0>",
+    "sample_windows_luma_fused": "sample_windows_fused_kernel<1, 0>",
+}
+LAUNCHED_INSTANCES = tuple(INSTANCE.values()) + tuple(
+    f"grouped_kernel<{c}, {WSIZE}, {a}>" for c in (3, 1) for a in range(1, 6))
 
 
 def log(*a):
@@ -258,12 +275,30 @@ def measure(name, scene, wset, mode, group, fused=False):
     return rec, out_k
 
 
+def ablation_times(scene, wset, mode, group):
+    """Device ms of the grouped form under each K5 switch on the same
+    windows: what each dropped stage of the work costs."""
+    from mvskit_tpu_torch.ops import cuda_ncc
+    from mvskit_tpu_torch.tools.bench_kernel import cuda_time_ms
+
+    idx, lvl, tl, dx, dy = wset[:5]
+    times = {}
+    for ablate in cuda_ncc.ABLATIONS[1:]:
+        def kern():
+            return cuda_ncc.sample_windows(scene, idx, lvl, tl, dx, dy, WSIZE, group=group,
+                                           luma=mode == "luma", ablate=ablate)[0]
+        times[ablate] = min(cuda_time_ms(kern, 7) for _ in range(2))
+    return times
+
+
 def kernel_phase(dev):
     """Phase 2. Returns the per-kernel records (without path launches)."""
     import torch
 
+    from mvskit_tpu_torch.ops import _build, cuda_ncc
     from mvskit_tpu_torch.tools.bench_kernel import bits_equal
 
+    ptxas = _build.ptxas_report()
     scene, sets = window_sets(dev)
     card = card_line()
     records = {}
@@ -285,6 +320,9 @@ def kernel_phase(dev):
             if not rec["bitwise_equal_ungrouped"]:
                 raise AssertionError(f"{name}: grouped output differs from ungrouped")
             rec["ungrouped_ms_same_windows"] = ung["ms"]
+            rec["plan"] = cuda_ncc.grouped_plan(rec["windows"], WSIZE, group, mode == "luma")
+            rec["ptxas"] = ptxas.get(INSTANCE[name])
+            rec["ablate_ms_same_windows"] = ablation_times(scene, sets[wset], mode, group)
             del out_u
         elif wset != "ungrouped":  # also at the gauntlet's shape
             g, out_g = measure(name + " (gauntlet windows)", scene, sets["ungrouped"],
@@ -297,7 +335,28 @@ def kernel_phase(dev):
         records[name] = rec
         del out
         torch.cuda.empty_cache()
+    # K4 computes K2's and K3g's output on the same windows
+    for grouped, fused in (("sample_windows_grouped", "sample_windows_fused"),
+                           ("sample_windows_luma_grouped", "sample_windows_luma_fused")):
+        records[grouped]["fused_ms_same_windows"] = records[fused]["ms"]
+        log(f"[kernel] {grouped}: {records[grouped]['ms']} ms (bound share "
+            f"{records[grouped]['bound_share']:.3f}), fused {records[fused]['ms']} ms, "
+            f"grid {records[grouped]['plan']['grid']}, ptxas {records[grouped]['ptxas']}")
     return records
+
+
+def build_report():
+    """ptxas's registers, shared memory and spills of every kernel
+    instance the script launches (None where the report lacks one)."""
+    from mvskit_tpu_torch.ops import _build
+
+    ptxas = _build.ptxas_report()
+    report = {k: ptxas.get(k) for k in LAUNCHED_INSTANCES}
+    log("[build] ptxas " + json.dumps(report))
+    missing = [k for k, v in report.items() if v is None]
+    if missing:
+        log(f"[build] ptxas report lacks {missing} ({len(ptxas)} instances read)")
+    return report
 
 
 def bench_phase(dev):
@@ -547,6 +606,7 @@ def main() -> int:
     lib = _build.build()
     _build.load_library()
     log(f"[build] {lib} in {time.time() - t0:.2f} s")
+    build_report()
 
     t0 = time.time()
     records = kernel_phase(dev)
@@ -567,14 +627,18 @@ def main() -> int:
     kernels = []
     for name, form, _, _, _, fused in KERNELS:
         r = records[name]
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": REPLACES_FUSED if fused else REPLACES,
             "launches": bench_launches[form] if fused else paths[path_of[form]]["launches"][form],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
-        })
+        }
+        if "plan" in r:  # the grouped forms, K2 and K3g
+            entry.update(bound_share=r["bound_share"], grid=r["plan"]["grid"],
+                         ptxas=r["ptxas"], fused_ms_same_windows=r["fused_ms_same_windows"])
+        kernels.append(entry)
     # one entry per ablation switch: its grouped RGB run on the bench
     # path, with the grouped luma run beside it
     for rec in bench:

@@ -20,41 +20,75 @@
 // contraction) and the taps accumulate in the order f00, f10, f01, f11,
 // so the kernel equals its plain PyTorch version bit for bit.
 //
-// What bounds it on the H100: four dependent 4-byte loads per sample
-// from L2 or HBM (latency, not bandwidth). The planes of one scene
+// Ungrouped form (K1, rgb=True, group=1): one thread per (window,
+// sample); neighbouring threads sample neighbouring lattice points of one
+// window, so their taps share cache lines, and the three channel stores
+// are coalesced. Bound on the H100: four dependent 4-byte loads per
+// sample from L2 or HBM (latency, not bandwidth). The planes of one scene
 // (16 views x 640x480 x 4 levels, packed RGB, about 26 MB) fit in the
-// 50 MB L2. Design answers:
-//   * ungrouped: one thread per (window, sample); neighbouring threads
-//     sample neighbouring lattice points of one window, so their taps
-//     share cache lines, and the three channel stores are coalesced.
-//   * grouped: one block per group of `group` consecutive windows (the
-//     jittered refinement candidates of one (patch, view)). The block
-//     loads the bounding box of the members that share member 0's image
-//     and level into shared memory once (a plain cooperative load, at
-//     most 44 KB), then every (member, sample) reads its taps there.
-//     Members on another level, or taps outside the box, read global
-//     memory. Both forms run the same sample routine on the same values,
-//     so grouped output equals ungrouped output bit for bit.
+// 50 MB L2.
 //
-// Luma form (K3): replaces the same kernel with rgb=False
-// (mvskit_tpu/ops/pallas_ncc.py:190, f32 luma planes, group=1 and
-// group=refine_cands). It reads the quad-packed luma planes
+// Luma forms (K3, rgb=False): the same kernel's f32 luma mode
+// (pallas_ncc.py:190). They read the quad-packed luma planes
 // (Scene.planes_luma_quad: y00 | y10<<8 | y01<<16 | y11<<24 per pixel),
-// so one 4-byte load carries all four taps of a sample, and writes
+// so one 4-byte load carries all four taps of a sample, and write
 // out[b, s] = y00*dx0*dy0 + y10*dx1*dy0 + y01*dx0*dy1 + y11*dx1*dy1,
 // evaluated left to right with every operation rounded alone, as its
-// plain version (ops/sampling.py::sample_luma_quad) does. Bound on the
-// H100: the stores, 49 * 4 = 196 B out per window against 32 B of
-// window parameters in and one 4-byte tap load per sample (mostly L2
-// hits), so it is store-bound. Design answers:
-//   * ungrouped: one thread per (window, sample), as the RGB form;
-//   * grouped: one block per candidate group. A shared-memory box buys
-//     nothing here (one load per sample already, from L2; the RGB box
-//     lost to plain L2 reads), so the block instead stages the group's
-//     window parameters and level metadata in shared memory once and
-//     then writes the group's group * S outputs as one contiguous,
-//     coalesced run. Same sample routine, so it equals the ungrouped
-//     launch bit for bit.
+// plain version (ops/sampling.py::sample_luma_quad) does. The ungrouped
+// luma form (K3u) is one thread per (window, sample), as K1.
+//
+// Grouped forms (K2 RGB, K3g luma): replace _make_kernel with
+// group=refine_cands (pallas_ncc.py:190; 32 on the main path): every
+// `group` consecutive windows are the jittered candidates of one
+// (patch, view). The TPU kernel DMAs the group's bounding tile into VMEM
+// once. On the H100 the work is bound by its stores: 786,432 refinement
+// windows write 462 MB of RGB rows (154 MB luma) against about 25 MB of
+// window parameters, and the taps are mostly L2 hits. One template,
+// grouped_kernel<C, WS, ABL> (C = 3 or 1 channels, WS the window size,
+// ABL the K5 switch), answers that:
+//   * persistent blocks: min(groups, SMs x resident blocks per SM)
+//     blocks (queried once per device and instance, cached) walk the
+//     groups with stride gridDim.x;
+//   * staged parameters: a group's slices of img, lvl, tl, dx and dy are
+//     contiguous (1 KB at group 32); the next group's are copied into a
+//     double buffer in shared memory with cp.async while the current
+//     group samples;
+//   * a member table, resolved once per group: each member's plane base,
+//     level width and height (the 8-way level select once per member,
+//     not per sample) and the lattice's partial sums tl + dx * i and
+//     dy * j, so a sample's position costs one add per coordinate with
+//     lattice()'s rounding;
+//   * no shared-memory box (the first K2 loaded one and lost to plain L2
+//     reads): every tap is read from L2 with __ldg;
+//   * loads ahead of arithmetic: each thread takes MVS_KC samples of the
+//     group per pass and issues all their tap loads (4 per RGB sample, 1
+//     per luma sample) before any of their arithmetic, in an unrolled
+//     loop of constant trip count. The work is bound by issued
+//     instructions as much as by bytes, so resident warps count for more
+//     than loads per thread: more samples a pass hold more registers,
+//     leave fewer blocks per SM and measured slower (PERF.md §6);
+//   * WS = 7 (MVSConfig.wsize's default) is compiled for its size, so
+//     the divisions by S and by wsize are by constants; every other size
+//     runs the same code with wsize read at run time (WS = 0);
+//   * the output through shared memory and TMA: the group's rows go into
+//     one of two output stages (18,816 B RGB, 6,272 B luma at 32 x 7x7;
+//     one stage where two exceed the card's shared memory), then one
+//     thread stores the stage with one 1-D bulk copy
+//     (cp.async.bulk.global.shared::cta) after fence.proxy.async; the
+//     store of group g overlaps the loads and arithmetic of group g+1,
+//     and a stage is rewritten only after cp.async.bulk.wait_group.read
+//     1 (at most the other stage's store still reading it out).
+//     A run that is not a multiple of 16 bytes (group 2, luma, 7x7: 392
+//     B) or an output that is not 16-byte aligned is stored by the same
+//     kernel with coalesced float stores from the stage, decided once per
+//     launch from the arguments;
+//   * a shared-memory request the card refuses (RGB group 128 at 15x15)
+//     returns its error, and the wrapper raises.
+// The sample routines are those of the ungrouped forms, with the same
+// rounding, so the grouped output equals the ungrouped one and the plain
+// version bit for bit. Tensor cores do not apply: a bilinear gather has
+// no matrix-product form that keeps this rounding (and the TPU's one-hot
+// product, K4, lost to its gather).
 //
 // Fused form (K4): replaces _make_kernel with fused=True, group > 1
 // (pallas_ncc.py:323-370), in both channel modes. It computes the same
@@ -62,17 +96,13 @@
 // with one matmul over concatenated tent weights and one K-row store.
 // Here it is one block per group, C = 3 (RGB) or C = 1 (luma)
 // channels: the group's window parameters and level metadata are staged
-// in shared memory as in the grouped luma form, every tap is read from
-// L2 with __ldg (no shared-memory box: the RGB box lost to plain L2
-// reads), and the group's group * C * S outputs are assembled in dynamic
-// shared memory (18,816 B for 32 RGB windows of 7 x 7, 75,264 B at
-// group 128) and written as one contiguous run of 16-byte float4
-// stores, Hopper's counterpart of the TPU's one store per group. It
-// uses the same sample routines, so it equals the plain version and the
-// unfused grouped launch bit for bit; a tensor-core tent-weight product
-// would lose that (and lost to the unfused form on the TPU). Bound on
-// the H100: the stores, about 462 MB for 786,432 RGB windows (0.14 ms at
-// 3.35 TB/s), or a third of that for luma.
+// in shared memory, every tap is read from L2 with __ldg, and the
+// group's group * C * S outputs are assembled in dynamic shared memory
+// (18,816 B for 32 RGB windows of 7 x 7, 75,264 B at group 128) and
+// written as one contiguous run of 16-byte float4 stores, Hopper's
+// counterpart of the TPU's one store per group. It uses the same sample
+// routines, so it equals the plain version and the grouped launch bit
+// for bit. Bound on the H100: the stores, as the grouped forms.
 //
 // Ablation switches (K5): replace _make_kernel's `ablate` settings
 // (pallas_ncc.py:194-200, 233, 254, 271, 289, 384, 397), measurement
@@ -81,15 +111,15 @@
 // each gives a defined output that its plain version
 // (ops/cuda_ncc.py::sample_windows_plain / _luma_plain, `ablate`)
 // repeats bit for bit:
-//   * nodma: no plane reads and no box load; every tap reads as 0 (the
-//     weighted sums of zeros: 0, or NaN where a weight is NaN);
+//   * nodma: no plane reads; every tap reads as 0 (the weighted sums of
+//     zeros: 0, or NaN where a weight is NaN);
 //   * nocompute: the tap origin is computed and tap 00 loaded; its
 //     channel bytes are stored as floats, with no weights (the other
 //     three taps are then dead loads, which the compiler drops);
-//   * norot: the TPU's tile-alignment step has its counterpart in the
-//     grouped RGB form's shared-memory box; norot runs that form with
-//     every tap read from global memory. The output equals the normal
-//     output; on the other forms it changes nothing;
+//   * norot: the TPU's tile-alignment step. Its counterpart was the
+//     first K2's shared-memory box; no form has a box now, so norot
+//     changes nothing on any form: its output and its work are the
+//     normal ones;
 //   * nowx: every sample of a window at its lattice origin (i = j = 0);
 //   * nomm: the four taps loaded and their channel bytes summed without
 //     weights (integers below 2^10: exact in any order).
@@ -99,11 +129,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <mutex>
+
 #define MVS_MAX_LEVELS 8
 #define MVS_MAX_GROUP 128
-#define MVS_TILE_PIX 11264  // 44 KB of int32 pixels (+ 2 KB of box
-                            // bookkeeping: under the 48 KB static limit)
 #define MVS_THREADS 256
+#define MVS_KC 2  // grouped form: samples per thread per pass
 #define MVS_STATIC_SMEM_LIMIT 49152
 
 // ablation switches, in the order of ops/cuda_ncc.py::ABLATIONS
@@ -365,133 +397,6 @@ sample_windows_ungrouped_kernel(const int* __restrict__ planes, LevelMeta meta,
 
 template <int ABL>
 __global__ void __launch_bounds__(MVS_THREADS)
-sample_windows_grouped_kernel(const int* __restrict__ planes, LevelMeta meta,
-                              int total, const int* __restrict__ img,
-                              const int* __restrict__ lvl,
-                              const float* __restrict__ tl,
-                              const float* __restrict__ dx,
-                              const float* __restrict__ dy,
-                              float* __restrict__ out, int wsize, int group) {
-  // the box: shared-memory tile of the group's taps; norot reads every
-  // tap from global memory instead, and nodma reads no plane at all
-  constexpr bool kBox = ABL != ABL_NOROT && ABL != ABL_NODMA;
-  __shared__ int tile[kBox ? MVS_TILE_PIX : 1];
-  __shared__ int s_box[4][MVS_MAX_GROUP];
-  __shared__ int box[5];  // x0, y0, x1, y1 (inclusive), use
-
-  const int S = wsize * wsize;
-  const int b0 = blockIdx.x * group;
-  const int img0 = img[b0];
-  const int l0 = clamp_level(lvl[b0], meta.n);
-  int off0, w0, h0;
-  level_meta(meta, l0, off0, w0, h0);
-  const int* base0 = planes + (int64_t)img0 * total + off0;
-
-  bool use = false;
-  int bx0 = 0, by0 = 0, bx1 = -1, by1 = -1;
-  if (kBox) {
-    // 1. per-member bounding box of its lattice corners (+1 px for the
-    //    second tap), for members on member 0's image and level
-    if (threadIdx.x < group) {
-      const int b = b0 + threadIdx.x;
-      int mnx = INT_MAX, mny = INT_MAX, mxx = INT_MIN, mxy = INT_MIN;
-      if (img[b] == img0 && clamp_level(lvl[b], meta.n) == l0) {
-        const float m = (float)(wsize - 1);
-        float lo_x = INFINITY, hi_x = -INFINITY, lo_y = INFINITY, hi_y = -INFINITY;
-        for (int c = 0; c < 4; ++c) {
-          const float fi = (c & 1) ? m : 0.0f;
-          const float fj = (c & 2) ? m : 0.0f;
-          const float x = lattice(tl[2 * b], dx[2 * b], dy[2 * b], fi, fj);
-          const float y = lattice(tl[2 * b + 1], dx[2 * b + 1], dy[2 * b + 1], fi, fj);
-          lo_x = fminf(lo_x, x); hi_x = fmaxf(hi_x, x);
-          lo_y = fminf(lo_y, y); hi_y = fmaxf(hi_y, y);
-        }
-        mnx = __float2int_rd(lo_x);
-        mny = __float2int_rd(lo_y);
-        mxx = __float2int_rd(hi_x);
-        mxy = __float2int_rd(hi_y);
-        mxx = mxx < INT_MAX ? mxx + 1 : mxx;
-        mxy = mxy < INT_MAX ? mxy + 1 : mxy;
-      }
-      s_box[0][threadIdx.x] = mnx;
-      s_box[1][threadIdx.x] = mny;
-      s_box[2][threadIdx.x] = mxx;
-      s_box[3][threadIdx.x] = mxy;
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      int mnx = INT_MAX, mny = INT_MAX, mxx = INT_MIN, mxy = INT_MIN;
-      for (int k = 0; k < group; ++k) {
-        mnx = min(mnx, s_box[0][k]);
-        mny = min(mny, s_box[1][k]);
-        mxx = max(mxx, s_box[2][k]);
-        mxy = max(mxy, s_box[3][k]);
-      }
-      mnx = max(mnx, 0);
-      mny = max(mny, 0);
-      mxx = min(mxx, w0 - 1);
-      mxy = min(mxy, h0 - 1);
-      const int64_t bw = (int64_t)mxx - mnx + 1;
-      const int64_t bh = (int64_t)mxy - mny + 1;
-      box[0] = mnx;
-      box[1] = mny;
-      box[2] = mxx;
-      box[3] = mxy;
-      box[4] = (bw > 0 && bh > 0 && bw * bh <= MVS_TILE_PIX) ? 1 : 0;
-    }
-    __syncthreads();
-    bx0 = box[0]; by0 = box[1]; bx1 = box[2]; by1 = box[3];
-    use = box[4] != 0;
-
-    // 2. cooperative load of the box into shared memory
-    if (use) {
-      const int bw = bx1 - bx0 + 1;
-      const int npix = bw * (by1 - by0 + 1);
-      for (int k = threadIdx.x; k < npix; k += blockDim.x) {
-        const int r = k / bw;
-        const int c = k - r * bw;
-        tile[k] = __ldg(base0 + (by0 + r) * w0 + bx0 + c);
-      }
-    }
-    __syncthreads();
-  }
-  const int bw = bx1 - bx0 + 1;
-
-  // 3. every (member, sample) through the shared sample routine
-  for (int p = threadIdx.x; p < group * S; p += blockDim.x) {
-    const int mbr = p / S;
-    const int s = p - mbr * S;
-    const int b = b0 + mbr;
-    const int l = clamp_level(lvl[b], meta.n);
-    int off, w, h;
-    level_meta(meta, l, off, w, h);
-    float x, y;
-    sample_xy<ABL>(tl[2 * b], tl[2 * b + 1], dx[2 * b], dx[2 * b + 1],
-                   dy[2 * b], dy[2 * b + 1], s, wsize, x, y);
-    const Taps t = bilinear_taps(x, y, w, h);
-    int v00, v10, v01, v11;
-    if (use && img[b] == img0 && l == l0 && t.lx >= bx0 && t.lx + 1 <= bx1 &&
-        t.ly >= by0 && t.ly + 1 <= by1) {
-      const int k = (t.ly - by0) * bw + (t.lx - bx0);
-      v00 = tile[k];
-      v10 = tile[k + 1];
-      v01 = tile[k + bw];
-      v11 = tile[k + bw + 1];
-    } else {
-      const int* q = planes + (int64_t)img[b] * total + off + t.ly * w + t.lx;
-      v00 = tap<ABL>(q);
-      v10 = tap<ABL>(q + 1);
-      v01 = tap<ABL>(q + w);
-      v11 = tap<ABL>(q + w + 1);
-    }
-    float r, g, bl;
-    rgb_sample<ABL>(t, v00, v10, v01, v11, r, g, bl);
-    store_rgb(out + (int64_t)b * 3 * S, s, S, r, g, bl);
-  }
-}
-
-template <int ABL>
-__global__ void __launch_bounds__(MVS_THREADS)
 sample_windows_luma_ungrouped_kernel(const int* __restrict__ planes,
                                      LevelMeta meta, int total,
                                      const int* __restrict__ img,
@@ -513,28 +418,236 @@ sample_windows_luma_ungrouped_kernel(const int* __restrict__ planes,
                           dx[2 * b + 1], dy[2 * b], dy[2 * b + 1], s, wsize);
 }
 
-template <int ABL>
-__global__ void __launch_bounds__(MVS_THREADS)
-sample_windows_luma_grouped_kernel(const int* __restrict__ planes,
-                                   LevelMeta meta, int total,
-                                   const int* __restrict__ img,
-                                   const int* __restrict__ lvl,
-                                   const float* __restrict__ tl,
-                                   const float* __restrict__ dx,
-                                   const float* __restrict__ dy,
-                                   float* __restrict__ out, int wsize,
-                                   int group) {
-  __shared__ GroupParams g;
-  const int S = wsize * wsize;
-  const int b0 = blockIdx.x * group;
-  stage_group(g, meta, total, img, lvl, tl, dx, dy, b0, group);
-  float* gout = out + (int64_t)b0 * S;
-  for (int p = threadIdx.x; p < group * S; p += blockDim.x) {
-    const int m = p / S;
-    gout[p] = luma_at<ABL>(planes + g.base[m], g.w[m], g.h[m], g.lat[0][m],
-                           g.lat[1][m], g.lat[2][m], g.lat[3][m], g.lat[4][m],
-                           g.lat[5][m], p - m * S, wsize);
+// ---- K2 / K3g: the grouped form (C = 3 RGB or C = 1 luma) ----
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// make this thread's shared-memory writes visible to the TMA (async proxy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// TMA 1-D bulk store of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) from shared to global memory, as one bulk group
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, int bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+      "cp.async.bulk.commit_group;\n" ::"l"(dst),
+      "r"(smem_addr(src)), "r"(bytes)
+      : "memory");
+}
+
+// wait until at most N of this thread's bulk stores still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// A group's raw parameters in shared memory, 8 * group words: img
+// [0, G), lvl [G, 2G), tl [2G, 4G), dx [4G, 6G), dy [6G, 8G). Word w of
+// group b0's slices in global memory:
+__device__ __forceinline__ const int* param_word(
+    int w, int G, int b0, const int* __restrict__ img, const int* __restrict__ lvl,
+    const float* __restrict__ tl, const float* __restrict__ dx,
+    const float* __restrict__ dy) {
+  if (w < G) return img + b0 + w;
+  if (w < 2 * G) return lvl + b0 + (w - G);
+  const int seg = (w - 2 * G) / (2 * G);
+  const float* src = seg == 0 ? tl : (seg == 1 ? dx : dy);
+  return reinterpret_cast<const int*>(src) + 2 * b0 + (w - 2 * G - seg * 2 * G);
+}
+
+// start the asynchronous copy of group b0's parameters into `dst`: 16-byte
+// cp.async where every slice is 16-byte aligned (vec16), else 4-byte
+__device__ __forceinline__ void copy_params(
+    int* dst, int G, int b0, bool vec16, const int* __restrict__ img,
+    const int* __restrict__ lvl, const float* __restrict__ tl,
+    const float* __restrict__ dx, const float* __restrict__ dy) {
+  if (vec16) {  // G % 4 == 0: no 4-word chunk straddles two slices
+    for (int k = threadIdx.x; k < 2 * G; k += blockDim.x)
+      cp_async16(dst + 4 * k, param_word(4 * k, G, b0, img, lvl, tl, dx, dy));
+  } else {
+    for (int w = threadIdx.x; w < 8 * G; w += blockDim.x)
+      cp_async4(dst + w, param_word(w, G, b0, img, lvl, tl, dx, dy));
   }
+}
+
+// A group's member table in shared memory, resolved once per group from
+// its raw parameters: per member m its plane base (in ints) and level
+// width and height, and the lattice's partial sums
+//   a[m * ws + i] = (tl.x + dx.x * i, tl.y + dx.y * i),
+//   c[m * ws + j] = (dy.x * j, dy.y * j),
+// so sample (i, j) lies at a + c, rounded exactly as lattice() rounds
+// (tl + d1 * i) + d2 * j. Under nowx every i and j is 0.
+struct Members {
+  int64_t* base;  // [G]
+  int2* wh;       // [G]
+  float2* a;      // [G * ws]
+  float2* c;      // [G * ws]
+};
+
+template <int ABL>
+__device__ __forceinline__ void resolve_members(const int* raw, const Members& t,
+                                                const LevelMeta& meta, int total,
+                                                int G, int ws) {
+  const float* tl = reinterpret_cast<const float*>(raw) + 2 * G;
+  const float* dx = tl + 2 * G;
+  const float* dy = dx + 2 * G;
+  for (int m = threadIdx.x; m < G; m += blockDim.x) {
+    int off, w, h;
+    level_meta(meta, clamp_level(raw[G + m], meta.n), off, w, h);
+    t.base[m] = (int64_t)raw[m] * total + off;
+    t.wh[m] = make_int2(w, h);
+  }
+  for (int e = threadIdx.x; e < G * ws; e += blockDim.x) {
+    const int m = e / ws;
+    const float k = ABL == ABL_NOWX ? 0.0f : (float)(e - m * ws);
+    t.a[e] = make_float2(__fadd_rn(tl[2 * m], __fmul_rn(dx[2 * m], k)),
+                         __fadd_rn(tl[2 * m + 1], __fmul_rn(dx[2 * m + 1], k)));
+    t.c[e] = make_float2(__fmul_rn(dy[2 * m], k), __fmul_rn(dy[2 * m + 1], k));
+  }
+}
+
+// one group's group * S samples into its stage (rows [C * S],
+// channel-major), MVS_KC samples per thread per pass: every tap load of
+// the pass is issued before any of its arithmetic
+template <int C, int WS, int ABL>
+__device__ __forceinline__ void sample_group(const int* __restrict__ planes,
+                                             const Members& t, int G, int wsize,
+                                             float* st) {
+  const int ws = WS > 0 ? WS : wsize;  // a constant in the WS > 0 instance
+  const int S = ws * ws;
+  const int n = G * S;
+  const int T = blockDim.x;
+  for (int p0 = threadIdx.x; p0 < n; p0 += T * MVS_KC) {
+    int v[MVS_KC][4];  // RGB: taps 00, 10, 01, 11; luma: the quad in [0]
+    Taps tp[MVS_KC];   // RGB
+    Frac fr[MVS_KC];   // luma
+#pragma unroll
+    for (int k = 0; k < MVS_KC; ++k) {
+      const int p = p0 + k * T;
+      if (p < n) {
+        const int q = p / ws;        // m * ws + j
+        const int m = q / ws;
+        const int i = p - q * ws;
+        const float2 a = t.a[m * ws + i];
+        const float2 c = t.c[q];
+        const float x = __fadd_rn(a.x, c.x), y = __fadd_rn(a.y, c.y);
+        const int2 wh = t.wh[m];
+        if (C == 3) {
+          tp[k] = bilinear_taps(x, y, wh.x, wh.y);
+          const int* r = planes + t.base[m] + tp[k].ly * wh.x + tp[k].lx;
+          v[k][0] = tap<ABL>(r);
+          v[k][1] = tap<ABL>(r + 1);
+          v[k][2] = tap<ABL>(r + wh.x);
+          v[k][3] = tap<ABL>(r + wh.x + 1);
+        } else {
+          fr[k] = bilinear_frac(x, y, wh.x, wh.y);
+          v[k][0] = tap<ABL>(planes + t.base[m] + fr[k].ly * wh.x + fr[k].lx);
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < MVS_KC; ++k) {
+      const int p = p0 + k * T;
+      if (p < n) {
+        if (C == 3) {
+          float r, g, b;
+          rgb_sample<ABL>(tp[k], v[k][0], v[k][1], v[k][2], v[k][3], r, g, b);
+          // member m's row starts at 3 * m * S, and p = m * S + lane
+          store_rgb(st + 2 * (p / S) * S, p, S, r, g, b);
+        } else {
+          st[p] = luma_sample<ABL>(v[k][0], fr[k]);
+        }
+      }
+    }
+  }
+}
+
+// The grouped form: persistent blocks, each walking the groups with
+// stride gridDim.x. Dynamic shared memory (plan_grouped): `nstages`
+// output stages of stage_floats floats, two raw parameter buffers
+// (8 * G words each), then the member table. Per group: the next group's
+// parameters are copied in with cp.async while this group samples; the
+// stage goes out as one TMA bulk store (tma) that overlaps the next
+// group's work, or as coalesced float stores where the run is not
+// 16-byte sized and aligned. The member table is rewritten for the next
+// group only after the barrier that ends this group's sampling.
+template <int C, int WS, int ABL>
+__global__ void __launch_bounds__(MVS_THREADS)
+grouped_kernel(const int* __restrict__ planes, LevelMeta meta, int total,
+               const int* __restrict__ img, const int* __restrict__ lvl,
+               const float* __restrict__ tl, const float* __restrict__ dx,
+               const float* __restrict__ dy, float* __restrict__ out,
+               int ngroups, int wsize, int G, int stage_floats, int nstages,
+               int tma, int vec16) {
+  const int ws = WS > 0 ? WS : wsize;
+  extern __shared__ float4 smem4[];
+  float* stage = reinterpret_cast<float*>(smem4);
+  int* raw = reinterpret_cast<int*>(stage + nstages * stage_floats);
+  Members t;
+  t.base = reinterpret_cast<int64_t*>(raw + 16 * G);
+  t.wh = reinterpret_cast<int2*>(t.base + G);
+  t.a = reinterpret_cast<float2*>(t.wh + G);
+  t.c = t.a + G * ws;
+  const int run = G * C * ws * ws;  // floats per group
+
+  int g = blockIdx.x;
+  copy_params(raw, G, g * G, vec16, img, lvl, tl, dx, dy);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  resolve_members<ABL>(raw, t, meta, total, G, ws);
+  for (int it = 0; g < ngroups; g += gridDim.x, ++it) {
+    const int nxt = (it & 1) ^ 1;
+    const int next = g + gridDim.x;
+    if (next < ngroups)
+      copy_params(raw + nxt * 8 * G, G, next * G, vec16, img, lvl, tl, dx, dy);
+    cp_async_commit();
+    float* st = stage + (nstages == 2 ? it & 1 : 0) * stage_floats;
+    if (tma && threadIdx.x == 0) {  // the store that last read `st` is done
+      if (nstages == 2) bulk_wait_read<1>(); else bulk_wait_read<0>();
+    }
+    __syncthreads();  // members resolved, `st` free
+    sample_group<C, WS, ABL>(planes, t, G, wsize, st);
+    if (tma) fence_proxy_async();
+    cp_async_wait_all();
+    __syncthreads();  // stage complete, next parameters arrived
+    float* gout = out + (int64_t)g * run;
+    if (tma) {
+      if (threadIdx.x == 0) bulk_store(gout, st, run * (int)sizeof(float));
+    } else {
+      for (int k = threadIdx.x; k < run; k += blockDim.x) gout[k] = st[k];
+    }
+    if (next < ngroups) resolve_members<ABL>(raw + nxt * 8 * G, t, meta, total, G, ws);
+  }
+  if (tma && threadIdx.x == 0) bulk_wait_all();
 }
 
 // K4: C = 3 (RGB, rows [C * S] channel-major) or C = 1 (luma). The
@@ -640,6 +753,148 @@ static int launch_fused(const Launch& a) {
   return (int)cudaGetLastError();
 }
 
+// ---- the grouped form's launch plan ----
+
+#define MVS_CACHE 128
+
+// the device's SM count and opt-in shared-memory limit per block, and
+// per kernel instance its opted-in shared memory and its resident
+// blocks per SM, each queried once and cached
+struct DeviceInfo { int dev, sms, optin; };
+struct SmemOptIn { const void* fn; int dev, bytes; };
+struct Occupancy { const void* fn; int dev, threads, smem, blocks; };
+
+static std::mutex g_cache_lock;
+static DeviceInfo g_devices[MVS_CACHE];
+static SmemOptIn g_optins[MVS_CACHE];
+static Occupancy g_occupancy[MVS_CACHE];
+static int g_n_devices = 0, g_n_optins = 0, g_n_occupancy = 0;
+
+static int device_info(DeviceInfo* out) {
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  std::lock_guard<std::mutex> hold(g_cache_lock);
+  for (int k = 0; k < g_n_devices; ++k)
+    if (g_devices[k].dev == dev) { *out = g_devices[k]; return 0; }
+  DeviceInfo d{dev, 0, 0};
+  err = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&d.optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  if (g_n_devices < MVS_CACHE) g_devices[g_n_devices++] = d;
+  *out = d;
+  return 0;
+}
+
+// allow `fn` `bytes` of dynamic shared memory (above 48 KB only by
+// opt-in); a size the card refuses returns its error
+static int opt_in_smem(const void* fn, int dev, int bytes) {
+  if (bytes <= MVS_STATIC_SMEM_LIMIT) return 0;
+  std::lock_guard<std::mutex> hold(g_cache_lock);
+  SmemOptIn* e = nullptr;
+  for (int k = 0; k < g_n_optins; ++k)
+    if (g_optins[k].fn == fn && g_optins[k].dev == dev) e = &g_optins[k];
+  if (e && e->bytes >= bytes) return 0;
+  const cudaError_t err =
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // consume it: the next launch's check reads it
+    return (int)err;
+  }
+  if (e) e->bytes = bytes;
+  else if (g_n_optins < MVS_CACHE) g_optins[g_n_optins++] = SmemOptIn{fn, dev, bytes};
+  return 0;
+}
+
+static int resident_blocks(const void* fn, int dev, int threads, int smem, int* blocks) {
+  std::lock_guard<std::mutex> hold(g_cache_lock);
+  for (int k = 0; k < g_n_occupancy; ++k) {
+    const Occupancy& o = g_occupancy[k];
+    if (o.fn == fn && o.dev == dev && o.threads == threads && o.smem == smem) {
+      *blocks = o.blocks;
+      return 0;
+    }
+  }
+  const cudaError_t err =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, threads, (size_t)smem);
+  if (err != cudaSuccess) return (int)err;
+  if (*blocks < 1) return (int)cudaErrorLaunchOutOfResources;
+  if (g_n_occupancy < MVS_CACHE)
+    g_occupancy[g_n_occupancy++] = Occupancy{fn, dev, threads, smem, *blocks};
+  return 0;
+}
+
+struct GroupedPlan {
+  int grid, threads, smem, stages, tma, vec16, blocks_per_sm, sms, stage_floats;
+};
+
+// The launch of grouped_kernel<C, WS, ABL> for B windows in groups of
+// `group`: two output stages where they fit the card's shared memory,
+// else one; the TMA store where a group's run is a multiple of 16 bytes
+// and the output 16-byte aligned; 16-byte parameter copies where group
+// is a multiple of 4 and the parameter arrays 16-byte aligned; the
+// persistent grid min(groups, SMs x resident blocks per SM).
+template <int C, int WS, int ABL>
+static int plan_grouped(int B, int wsize, int group, bool out16, bool params16,
+                        GroupedPlan* p) {
+  if (group < 2 || group > MVS_MAX_GROUP || B % group != 0 || wsize < 1)
+    return (int)cudaErrorInvalidValue;
+  DeviceInfo d;
+  int err = device_info(&d);
+  if (err) return err;
+  const int n = group * wsize * wsize;
+  const int run = n * C;
+  p->stage_floats = (run + 3) & ~3;
+  const int one = p->stage_floats * (int)sizeof(float);
+  // two raw parameter buffers (32 B a member each), the member table
+  // (base, width and height: 16 B a member; lattice sums: 16 B a member
+  // and lattice step)
+  const int fixed = 64 * group + 16 * group + 16 * group * wsize;
+  p->stages = 2 * one + fixed <= d.optin ? 2 : 1;
+  p->smem = p->stages * one + fixed;
+  p->threads = group_threads(n);
+  p->tma = (run * (int)sizeof(float)) % 16 == 0 && out16;
+  p->vec16 = group % 4 == 0 && params16;
+  p->sms = d.sms;
+  const void* fn = (const void*)grouped_kernel<C, WS, ABL>;
+  err = opt_in_smem(fn, d.dev, p->smem);
+  if (err) return err;
+  err = resident_blocks(fn, d.dev, p->threads, p->smem, &p->blocks_per_sm);
+  if (err) return err;
+  p->grid = std::min(B / group, d.sms * p->blocks_per_sm);
+  return 0;
+}
+
+static bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+template <int C, int WS, int ABL>
+static int launch_grouped_ws(const Launch& a) {
+  GroupedPlan p;
+  const bool params16 = aligned16(a.img) && aligned16(a.lvl) && aligned16(a.tl) &&
+                        aligned16(a.dx) && aligned16(a.dy);
+  const int err = plan_grouped<C, WS, ABL>(a.B, a.wsize, a.group, aligned16(a.out),
+                                           params16, &p);
+  if (err) return err;
+  grouped_kernel<C, WS, ABL><<<p.grid, p.threads, p.smem, a.stream>>>(
+      a.planes, a.meta, a.total, a.img, a.lvl, a.tl, a.dx, a.dy, a.out,
+      a.B / a.group, a.wsize, a.group, p.stage_floats, p.stages, p.tma, p.vec16);
+  return (int)cudaGetLastError();
+}
+
+// WS = 7 (MVSConfig.wsize's default) is compiled for its size; every
+// other size runs the same code with wsize read at run time
+template <int C, int ABL>
+static int launch_grouped(const Launch& a) {
+  return a.wsize == 7 ? launch_grouped_ws<C, 7, ABL>(a) : launch_grouped_ws<C, 0, ABL>(a);
+}
+
+template <int C>
+static int plan_grouped_ws(int B, int wsize, int group, GroupedPlan* p) {
+  return wsize == 7 ? plan_grouped<C, 7, ABL_NONE>(B, wsize, group, true, true, p)
+                    : plan_grouped<C, 0, ABL_NONE>(B, wsize, group, true, true, p);
+}
+
 template <int ABL>
 static int launch_form(int form, const Launch& a) {
   if (form == FORM_UNGROUPED || form == FORM_LUMA_UNGROUPED) {
@@ -662,17 +917,9 @@ static int launch_form(int form, const Launch& a) {
     return (int)cudaErrorInvalidValue;
   switch (form) {
     case FORM_GROUPED:
-      sample_windows_grouped_kernel<ABL><<<a.B / a.group, MVS_THREADS, 0,
-                                           a.stream>>>(
-          a.planes, a.meta, a.total, a.img, a.lvl, a.tl, a.dx, a.dy, a.out,
-          a.wsize, a.group);
-      return (int)cudaGetLastError();
+      return launch_grouped<3, ABL>(a);
     case FORM_LUMA_GROUPED:
-      sample_windows_luma_grouped_kernel<ABL><<<
-          a.B / a.group, group_threads(a.group * a.wsize * a.wsize), 0,
-          a.stream>>>(a.planes, a.meta, a.total, a.img, a.lvl, a.tl, a.dx,
-                      a.dy, a.out, a.wsize, a.group);
-      return (int)cudaGetLastError();
+      return launch_grouped<1, ABL>(a);
     case FORM_FUSED:
       return launch_fused<3, ABL>(a);
     case FORM_LUMA_FUSED:
@@ -751,6 +998,24 @@ extern "C" int mvs_sample_windows_luma_ungrouped(MVS_COMMON_PARAMS, int ablate,
 extern "C" int mvs_sample_windows_luma_grouped(MVS_COMMON_PARAMS, int group,
                                                int ablate, void* stream) {
   return launch(FORM_LUMA_GROUPED, MVS_COMMON_ARGS, group, ablate, stream);
+}
+
+// The grouped launch's plan for B windows of wsize in groups of `group`
+// (luma or RGB) on the current device, with the wrapper's 16-byte
+// aligned arrays: writes grid, threads, dynamic shared memory bytes,
+// output stages, TMA store (0/1), 16-byte parameter copies (0/1),
+// resident blocks per SM, SM count and floats per stage into
+// plan[0..8]. Returns the error the launch would return, else 0.
+extern "C" int mvs_sample_windows_grouped_plan(int luma, int B, int wsize, int group,
+                                               int* plan) {
+  GroupedPlan p;
+  const int err = luma ? plan_grouped_ws<1>(B, wsize, group, &p)
+                       : plan_grouped_ws<3>(B, wsize, group, &p);
+  if (err) return err;
+  const int v[9] = {p.grid, p.threads, p.smem, p.stages, p.tma, p.vec16,
+                    p.blocks_per_sm, p.sms, p.stage_floats};
+  for (int k = 0; k < 9; ++k) plan[k] = v[k];
+  return 0;
 }
 
 // Fused RGB launch (K4, fused=True): the grouped form's output, one

@@ -7,6 +7,12 @@ ctypes and caches it for the process. The library lands in
 a hash of the sources and flags, so an unchanged tree builds once. It
 uses nothing but the sources in the repository; a failed build raises
 with nvcc's stderr.
+
+nvcc runs with ``-Xptxas -v``: ptxas reports each kernel instance's
+registers, shared memory, stack and spills, and a successful build keeps
+that report as ``ptxas.txt`` beside the library. ``ptxas_report()``
+reads it back per instance, under names such as
+``grouped_kernel<3, 7, 0>`` (the template arguments of the mangled name).
 """
 
 from __future__ import annotations
@@ -14,18 +20,19 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR.parent / "build" / "mvskit_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
@@ -60,6 +67,10 @@ def library_path() -> Path:
     return BUILD_ROOT / _digest() / "libmvskit_kernels.so"
 
 
+def report_path() -> Path:
+    return library_path().with_name("ptxas.txt")
+
+
 def build() -> Path:
     """Compile csrc/*.cu into the hashed library path (no-op when it
     exists). Returns the path."""
@@ -75,8 +86,61 @@ def build() -> Path:
         raise RuntimeError(
             f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stderr}"
         )
+    report_path().write_text(res.stdout + res.stderr)
     os.replace(tmp, out)
     return out
+
+
+def demangle(name: str) -> str:
+    """`_Z14grouped_kernelILi3ELi7ELi0EEv...` -> `grouped_kernel<3, 7, 0>`:
+    the kernel's name and its integer template arguments (the only kind
+    the library's kernels take); other names come back unchanged."""
+    m = re.match(r"_Z(\d+)", name)
+    if not m:
+        return name
+    start = m.end()
+    base = name[start:start + int(m.group(1))]
+    args = re.match(r"I((?:Li-?\d+E)+)E", name[start + len(base):])
+    if not args:
+        return base
+    values = re.findall(r"Li(-?\d+)E", args.group(1))
+    return f"{base}<{', '.join(values)}>"
+
+
+def parse_ptxas(text: str) -> Dict[str, Dict[str, int]]:
+    """Per kernel instance (demangled name): registers, smem_bytes (static
+    shared memory), stack_bytes, spill_stores and spill_loads, from
+    ptxas's -v report."""
+    out: Dict[str, Dict[str, int]] = {}
+    entry = None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = demangle(m.group(1))
+            out[entry] = {"registers": 0, "smem_bytes": 0, "stack_bytes": 0,
+                          "spill_stores": 0, "spill_loads": 0}
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[entry].update(stack_bytes=int(m.group(1)), spill_stores=int(m.group(2)),
+                              spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[entry]["registers"] = int(m.group(1))
+            s = re.search(r"(\d+) bytes smem", line)
+            out[entry]["smem_bytes"] = int(s.group(1)) if s else 0
+            entry = None
+    return out
+
+
+def ptxas_report() -> Dict[str, Dict[str, int]]:
+    """The built library's ptxas report, per kernel instance (an empty
+    dict where the build kept none)."""
+    path = report_path()
+    return parse_ptxas(path.read_text()) if path.exists() else {}
 
 
 def load_library() -> ctypes.CDLL:
@@ -97,5 +161,8 @@ def load_library() -> ctypes.CDLL:
                 for form in ("grouped", "fused"):
                     fn = getattr(lib, f"mvs_sample_windows_{chans}{form}")
                     fn.argtypes, fn.restype = common + [i32, i32, ptr], i32
+            # (luma, B, wsize, group, int plan[9])
+            lib.mvs_sample_windows_grouped_plan.argtypes = [i32] * 4 + [ints]
+            lib.mvs_sample_windows_grouped_plan.restype = i32
             _lib = lib
         return _lib

@@ -17,7 +17,9 @@ same arithmetic on the gather path. ``ablate`` names one of the
 measurement switches of the JAX kernel (``ABLATIONS``), each of which
 drops one stage of the work and has a defined output that its plain
 version repeats. ``LAUNCHES`` counts kernel launches per form, and
-ablated launches per switch.
+ablated launches per switch. ``grouped_plan`` reports how the grouped
+form launches on the current card (persistent grid, threads, shared
+memory, output stages, store path).
 """
 
 from __future__ import annotations
@@ -235,6 +237,33 @@ def _launch(scene: Scene, idx, lvl, tl, dx, dy, wsize: int, illum: int,
                            f"failed: CUDA error {err}")
     LAUNCHES[f"ablate_{ablate}" if ablate else form] += 1
     return out
+
+
+GROUPED_PLAN_KEYS = ("grid", "threads", "smem_bytes", "stages", "tma_store",
+                     "param_copy16", "blocks_per_sm", "sms", "stage_floats")
+
+
+def grouped_plan(B: int, wsize: int, group: int, luma: bool = False) -> dict:
+    """How the grouped form launches B windows of wsize in groups of
+    `group` on the current card (the wrapper's 16-byte aligned arrays):
+    the persistent grid, threads per block, dynamic shared memory, output
+    stages (2, or 1 where two exceed the card's shared memory), whether
+    the group's run leaves by TMA bulk store, whether parameters are
+    copied in 16-byte chunks, resident blocks per SM and the SM count.
+    Raises where the launch would fail (a shared-memory size the card
+    refuses). Needs the card."""
+    from . import _build
+
+    lib = _build.load_library()
+    plan = (ctypes.c_int * len(GROUPED_PLAN_KEYS))()
+    err = lib.mvs_sample_windows_grouped_plan(int(luma), B, wsize, group, plan)
+    if err != 0:
+        raise RuntimeError(f"sample_windows grouped plan (B {B}, wsize {wsize}, group "
+                           f"{group}, luma {luma}) failed: CUDA error {err}")
+    rec = dict(zip(GROUPED_PLAN_KEYS, plan))
+    for k in ("tma_store", "param_copy16"):
+        rec[k] = bool(rec[k])
+    return rec
 
 
 def sample_windows(scene: Scene, idx, lvl, tl, dx, dy, wsize: int,

@@ -8,9 +8,10 @@ conftest:
 Tolerances: the RGB kernel equals its plain version (same arithmetic,
 each operation rounded alone) — checked to 1e-3 on the 0-255 scale, the
 bound chip_smoke.py also states; the luma kernel equals its plain
-version bit for bit; grouped and fused (K4) equal ungrouped bit for bit;
-every ablation switch (K5) in every launch form equals its plain
-version bit for bit.
+version bit for bit; grouped (K2, K3g: the persistent kernel, at the
+compiled window size 7 and the run-time size instance) and fused (K4)
+equal ungrouped bit for bit; every ablation switch (K5) in every launch
+form equals its plain version bit for bit.
 The pipeline on the card against the same pipeline on the CPU, fed the
 same random numbers: alive counts within 3 % (reductions sum in another
 order on the card, which can flip a near-tie accept/reject)."""
@@ -39,7 +40,7 @@ def _no_launches():
     return {k: 0 for k in cuda_ncc.LAUNCHES}
 
 
-def _windows(scene, n_patch=64, n_cands=32):
+def _windows(scene, n_patch=64, n_cands=32, wsize=WSIZE):
     from mvskit_tpu_torch.geometry import camera as cam
     from mvskit_tpu_torch.ops import ncc
     from mvskit_tpu_torch.utils import synthetic
@@ -55,7 +56,7 @@ def _windows(scene, n_patch=64, n_cands=32):
     views = torch.tensor([[0, 1, 2]], dtype=torch.int32, device=dev).expand(c.shape[0], 3)
     px, py = cam.get_paxes(scene.cams, views[:, 0].long(), c, n, LEVEL)
     tl, dx, dy, lvl, valid = ncc.window_geometry_views(
-        scene, views.T.contiguous(), c, px, py, n, LEVEL, WSIZE, 1.0471976)
+        scene, views.T.contiguous(), c, px, py, n, LEVEL, wsize, 1.0471976)
     flat = lambda x, k=(): x.reshape((-1,) + k).contiguous()  # noqa: E731
     return (flat(views.T.contiguous()), flat(lvl.to(torch.int32)), flat(tl, (2,)),
             flat(dx, (2,)), flat(dy, (2,)))
@@ -134,29 +135,106 @@ def test_fused_forms_match_grouped_and_plain_bitwise(card):
 
 def test_ablation_switches_match_plain_bitwise(card):
     """K5: every switch in every launch form and channel mode equals its
-    plain version bit for bit; norot equals the normal output."""
+    plain version bit for bit (the grouped form also in its run-time
+    window size instance, at 5 x 5); norot equals the normal output."""
     from mvskit_tpu_torch.ops import cuda_ncc
     from mvskit_tpu_torch.utils import synthetic
 
     _, _, scene = synthetic.plane_scene(n_views=6, width=160, height=120, device=card)
-    args = _windows(scene, n_patch=16)
+    cases = ((WSIZE, ((1, False), (32, False), (32, True))), (5, ((32, False),)))
     cuda_ncc.reset_launches()
-    for ablate in cuda_ncc.ABLATIONS[1:]:
-        for luma, plain_fn in ((False, cuda_ncc.sample_windows_plain),
-                               (True, cuda_ncc.sample_windows_luma_plain)):
-            plain = plain_fn(scene, *args, WSIZE, ablate=ablate)
-            for group, fused in ((1, False), (32, False), (32, True)):
-                out, _ = cuda_ncc.sample_windows(scene, *args, WSIZE, group=group,
-                                                 luma=luma, fused=fused, ablate=ablate)
-                torch.cuda.synchronize()
-                assert torch.equal(_bits(out), _bits(plain)), (ablate, luma, group, fused)
+    for wsize, forms in cases:
+        args = _windows(scene, n_patch=16, wsize=wsize)
+        for ablate in cuda_ncc.ABLATIONS[1:]:
+            for luma, plain_fn in ((False, cuda_ncc.sample_windows_plain),
+                                   (True, cuda_ncc.sample_windows_luma_plain)):
+                plain = plain_fn(scene, *args, wsize, ablate=ablate)
+                for group, fused in forms:
+                    out, _ = cuda_ncc.sample_windows(scene, *args, wsize, group=group,
+                                                     luma=luma, fused=fused, ablate=ablate)
+                    torch.cuda.synchronize()
+                    assert torch.equal(_bits(out), _bits(plain)), (
+                        wsize, ablate, luma, group, fused)
     assert cuda_ncc.LAUNCHES == dict(_no_launches(), **{
-        f"ablate_{a}": 6 for a in cuda_ncc.ABLATIONS[1:]})
+        f"ablate_{a}": 8 for a in cuda_ncc.ABLATIONS[1:]})
+    args = _windows(scene, n_patch=16)
     normal, _ = cuda_ncc.sample_windows(scene, *args, WSIZE, group=32)
     norot, _ = cuda_ncc.sample_windows(scene, *args, WSIZE, group=32, ablate="norot")
     assert torch.equal(_bits(norot), _bits(normal))
     with pytest.raises(ValueError, match="ablate"):
         cuda_ncc.sample_windows(scene, *args, WSIZE, ablate="noflop")
+
+
+@pytest.mark.parametrize("luma", [False, True])
+def test_grouped_form_every_size_and_group_bitwise(card, luma):
+    """K2 (RGB) / K3g (luma), the persistent grouped kernel, at wsize 5, 7
+    (the compiled-size instance), 9 and 15 (the run-time size instance)
+    and group 2, 4, 32 and 128: bit-equal to the plain version and to the
+    ungrouped launch. Group 2 at 7 x 7 (392 B luma, 1,176 B RGB per
+    group) leaves by float stores, the others by TMA bulk store; where two
+    output stages pass the H100's 232,448 B per block (RGB group 128 at
+    9 x 9, luma group 128 at 15 x 15) the kernel runs one. RGB group 128
+    at 15 x 15 (345,600 B for one stage) is refused by the card, and the
+    wrapper raises."""
+    from mvskit_tpu_torch.ops import cuda_ncc
+    from mvskit_tpu_torch.utils import synthetic
+
+    _, _, scene = synthetic.plane_scene(n_views=6, width=160, height=120, device=card)
+    plain_fn = cuda_ncc.sample_windows_luma_plain if luma else cuda_ncc.sample_windows_plain
+    form = "luma_grouped" if luma else "grouped"
+    cuda_ncc.reset_launches()
+    grouped = 0
+    for wsize in (5, 7, 9, 15):
+        args = _windows(scene, wsize=wsize)
+        B = args[0].shape[0]
+        ung, _ = cuda_ncc.sample_windows(scene, *args, wsize, luma=luma)
+        plain = plain_fn(scene, *args, wsize)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(ung), _bits(plain)), wsize
+        for group in (2, 4, 32, 128):
+            if not luma and (wsize, group) == (15, 128):
+                with pytest.raises(RuntimeError, match="grouped"):
+                    cuda_ncc.grouped_plan(B, wsize, group, luma)
+                with pytest.raises(RuntimeError, match="grouped"):
+                    cuda_ncc.sample_windows(scene, *args, wsize, group=group, luma=luma)
+                continue
+            plan = cuda_ncc.grouped_plan(B, wsize, group, luma)
+            out, _ = cuda_ncc.sample_windows(scene, *args, wsize, group=group, luma=luma)
+            torch.cuda.synchronize()
+            grouped += 1
+            assert torch.equal(_bits(out), _bits(ung)), (wsize, group, plan)
+            run_bytes = group * wsize * wsize * (1 if luma else 3) * 4
+            assert plan["tma_store"] == (run_bytes % 16 == 0), plan
+            single = (wsize, group) == ((15, 128) if luma else (9, 128))
+            assert plan["stages"] == (1 if single else 2), (wsize, group, plan)
+            assert 1 <= plan["grid"] <= B // group
+    assert cuda_ncc.LAUNCHES == dict(_no_launches(), **{
+        form: grouped, ("luma_ungrouped" if luma else "ungrouped"): 4})
+
+
+@pytest.mark.parametrize("luma", [False, True])
+def test_grouped_form_walks_many_groups_per_block(card, luma):
+    """786,432 windows in groups of 32 (the main path's refinement batch)
+    at 7 x 7 and 5 x 5: at least 8 groups per persistent block, so every
+    block walks both parameter buffers and both output stages many
+    times; bit-equal to the ungrouped launch and the plain version."""
+    from mvskit_tpu_torch.ops import cuda_ncc
+    from mvskit_tpu_torch.utils import synthetic
+
+    _, _, scene = synthetic.plane_scene(n_views=6, width=160, height=120, device=card)
+    plain_fn = cuda_ncc.sample_windows_luma_plain if luma else cuda_ncc.sample_windows_plain
+    for wsize in (WSIZE, 5):
+        args = _windows(scene, n_patch=8192, wsize=wsize)
+        B = args[0].shape[0]
+        plan = cuda_ncc.grouped_plan(B, wsize, 32, luma)
+        assert B // 32 >= 8 * plan["grid"], plan
+        assert plan["tma_store"] and plan["stages"] == 2, plan
+        out, _ = cuda_ncc.sample_windows(scene, *args, wsize, group=32, luma=luma)
+        ung, _ = cuda_ncc.sample_windows(scene, *args, wsize, luma=luma)
+        plain = plain_fn(scene, *args, wsize)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(out), _bits(ung)), wsize
+        assert torch.equal(_bits(ung), _bits(plain)), wsize
 
 
 def test_kernels_read_the_asked_illumination(card):

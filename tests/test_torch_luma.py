@@ -93,9 +93,13 @@ def test_sample_luma_quad_matches_jax(scenes):
     np.testing.assert_allclose(got, want, atol=1e-4)
 
 
+@pytest.mark.parametrize("wsize", [5, 7, 9])
 @pytest.mark.parametrize("group", [1, 32])
-def test_luma_windows_and_costs_match_jax(scenes, group):
+def test_luma_windows_and_costs_match_jax(scenes, group, wsize):
+    """At every window size the card's grouped luma kernel is compiled
+    for (7, and the run-time size instance at 5 and 9)."""
     Ps, js, ts = scenes
+    S = wsize * wsize
     if group == 1:
         coord, normal = jsyn.plane_points(Ps, 64, seed=4, extent=1.0)
     else:
@@ -106,27 +110,27 @@ def test_luma_windows_and_costs_match_jax(scenes, group):
         normal = np.repeat(normal, group, 0)
     coord, normal = coord.astype(np.float32), normal.astype(np.float32)
     views = _views(coord.shape[0], 4)
-    idx, lvl, tl, dx, dy, valid = _geometry(js, coord, normal, views)
+    idx, lvl, tl, dx, dy, valid = _geometry(js, coord, normal, views, wsize)
     T, B = valid.shape
     jtex, jfit, ch = jncc.sample_windows_raw(
         js, jnp.asarray(idx.reshape(T, B)), jnp.asarray(tl.reshape(T, B, 2)),
         jnp.asarray(dx.reshape(T, B, 2)), jnp.asarray(dy.reshape(T, B, 2)),
-        jnp.asarray(lvl.reshape(T, B)), WSIZE, 0, True, group,
+        jnp.asarray(lvl.reshape(T, B)), wsize, 0, True, group,
     )
     assert ch == 1 and np.asarray(jfit).all()
     cuda_ncc.reset_launches()
     out, fit = cuda_ncc.sample_windows(ts, _t(idx), _t(lvl), _t(tl), _t(dx), _t(dy),
-                                       WSIZE, group=group, luma=True)
+                                       wsize, group=group, luma=True)
     assert all(v == 0 for v in cuda_ncc.LAUNCHES.values())  # CPU: plain version
     assert fit.all() and out.shape == (T * B, S)
     assert valid.mean() > 0.5, "fixture must exercise valid windows"
     np.testing.assert_allclose(out.numpy(), np.asarray(jtex).reshape(T * B, S), atol=1e-4)
 
     jt, jv = jncc.texs_for_views(js, jnp.asarray(views), jnp.asarray(coord),
-                                 jnp.asarray(normal), LEVEL, WSIZE, A1,
+                                 jnp.asarray(normal), LEVEL, wsize, A1,
                                  luma=True, group=group)
     tt, tv = tncc.texs_for_views(ts, _t(views), _t(coord), _t(normal), LEVEL,
-                                 WSIZE, A1, luma=True, group=group)
+                                 wsize, A1, luma=True, group=group)
     assert tt.shape == (T, B, S)
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
     np.testing.assert_allclose(tt.numpy(), np.asarray(jt), atol=2e-4)

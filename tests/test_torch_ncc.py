@@ -47,13 +47,13 @@ def _views(B, T, n=6):
     return v
 
 
-def _geometry(js, coord, normal, views):
+def _geometry(js, coord, normal, views, wsize=WSIZE):
     """JAX window geometry for a [B, T] view list: returns numpy
     (idx[T*B], lvl[T*B], tl[T*B, 2], dx, dy, valid[T, B])."""
     c, n, v = jnp.asarray(coord), jnp.asarray(normal), jnp.asarray(views)
     px, py = jcam.get_paxes(js.cams, jnp.maximum(v[:, 0], 0), c, n, LEVEL)
     tl, dx, dy, lvl, valid = jncc.window_geometry_views(
-        js, v.T, c, px, py, n, LEVEL, WSIZE, A1
+        js, v.T, c, px, py, n, LEVEL, wsize, A1
     )
     T, B = v.T.shape
     f = lambda a, k=(): np.asarray(a).reshape((T * B,) + k)  # noqa: E731
@@ -75,8 +75,12 @@ def _t(a, dtype=None):
     return torch.as_tensor(np.array(a), dtype=dtype)
 
 
+@pytest.mark.parametrize("wsize", [5, 7, 9])
 @pytest.mark.parametrize("group", [1, 32])
-def test_plain_matches_jax_gather_path(scenes, group):
+def test_plain_matches_jax_gather_path(scenes, group, wsize):
+    """At every window size the card's grouped kernel is compiled for
+    (7, and the run-time size instance at 5 and 9), the plain version it
+    is held to on the card agrees with the JAX gather path."""
     Ps, js, ts = scenes
     if group == 1:
         coord, normal = jsyn.plane_points(Ps, 64, seed=4, extent=1.0)
@@ -84,18 +88,18 @@ def test_plain_matches_jax_gather_path(scenes, group):
     else:
         coord, normal = _candidates(Ps, 4, group, seed=5)
     views = _views(coord.shape[0], 3)
-    idx, lvl, tl, dx, dy, valid = _geometry(js, coord, normal, views)
+    idx, lvl, tl, dx, dy, valid = _geometry(js, coord, normal, views, wsize)
     T, B = valid.shape
     jtex, jfit, ch = jncc.sample_windows_raw(
         js, jnp.asarray(idx.reshape(T, B)), jnp.asarray(tl.reshape(T, B, 2)),
         jnp.asarray(dx.reshape(T, B, 2)), jnp.asarray(dy.reshape(T, B, 2)),
-        jnp.asarray(lvl.reshape(T, B)), WSIZE, 0, False, group,
+        jnp.asarray(lvl.reshape(T, B)), wsize, 0, False, group,
     )
     assert ch == 3 and np.asarray(jfit).all()
     out, fit = cuda_ncc.sample_windows(
-        ts, _t(idx), _t(lvl), _t(tl), _t(dx), _t(dy), WSIZE, group=group
+        ts, _t(idx), _t(lvl), _t(tl), _t(dx), _t(dy), wsize, group=group
     )
-    assert fit.all() and out.shape == (T * B, 3 * S)
+    assert fit.all() and out.shape == (T * B, 3 * wsize * wsize)
     assert valid.mean() > 0.5, "fixture must exercise valid windows"
     np.testing.assert_allclose(out.numpy(), np.asarray(jtex).reshape(T * B, -1), atol=1e-3)
 
