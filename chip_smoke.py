@@ -15,11 +15,15 @@ Phases (any failure raises and the process exits non-zero):
      16 x 640x480, 4-level plane scene (RGB ungrouped: 4096 patches x 6
      views; the others: 4096 x 32 refinement candidates x 6 views, the
      luma ungrouped launch also on the 4096 x 6), the grouped and fused
-     forms also against the ungrouped / grouped launch, with CUDA-event
-     timings and each kernel's bound (least time for its bytes and
-     operations on an H100); the grouped records (K2, K3g) also carry
-     their launch plan (persistent grid, stages, store path), ptxas's
-     numbers, K4's time and each K5 switch's time on the same windows;
+     forms also against the ungrouped / grouped launch and the ungrouped
+     forms against the grouped launch, with CUDA-event timings and each
+     kernel's bound (least time for its bytes and operations on an
+     H100); the window kernel's records (K1, K2, K3u, K3g) also carry
+     their launch plan (tile, persistent grid, stages, store path) and
+     ptxas's numbers, each K5 switch's time on the same windows, the
+     grouped ones K4's time and the ungrouped launch's plan and times,
+     the ungrouped ones their time at every tile size, with two stages
+     and under both prologues, and the timing floors beside it;
   3. RGB main path: writes the 16 x 640x480, 4096-seed plane dataset and
      runs `mvskit_tpu_torch.cli.main` with the default config (3
      iterations, 8 rounds, 6 x 32 RGB search, 2^18-row table);
@@ -36,16 +40,22 @@ Phases (any failure raises and the process exits non-zero):
      luma forms, each output bit for bit against its plain version;
   7. pmvs: `cli.main --strategy pmvs` on phase 3's dataset at the
      default depth.
+  8. K1 at the RGB path's batches: the ungrouped RGB launch timed,
+     bounded and checked bit for bit at the median and the largest
+     batch that phase 3 gave it, with its tile, stage, prologue and K5
+     times there.
 Each path runs with the launch counters set to 0 just before it and
-read just after; each checks its outputs and, where the path has one,
-its quality against the analytic plane. The line before the last is the
-kernels' JSON record; the last line is {"ok": true, "device": {...}}.
+read just after (launches and windows per launch of each form); each
+checks its outputs and, where the path has one, its quality against the
+analytic plane. The line before the last is the kernels' JSON record;
+the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -90,17 +100,22 @@ KERNELS = (
 )
 # the kernel instance (ptxas name) behind each record, and every
 # instance the script launches: WS = 7 and every K5 switch on the
-# grouped forms (bench path), the normal switch on the others
+# grouped forms (bench path), the normal switch on the others. The
+# ungrouped and grouped forms of a channel mode are one instance of the
+# persistent window kernel (K1 and K2 window_kernel<3, 7, 0>, K3u and
+# K3g window_kernel<1, 7, 0>), launched with different tile plans.
 INSTANCE = {
-    "sample_windows_ungrouped": "sample_windows_ungrouped_kernel<0>",
-    "sample_windows_grouped": f"grouped_kernel<3, {WSIZE}, 0>",
-    "sample_windows_luma_ungrouped": "sample_windows_luma_ungrouped_kernel<0>",
-    "sample_windows_luma_grouped": f"grouped_kernel<1, {WSIZE}, 0>",
+    "sample_windows_ungrouped": f"window_kernel<3, {WSIZE}, 0>",
+    "sample_windows_grouped": f"window_kernel<3, {WSIZE}, 0>",
+    "sample_windows_luma_ungrouped": f"window_kernel<1, {WSIZE}, 0>",
+    "sample_windows_luma_grouped": f"window_kernel<1, {WSIZE}, 0>",
     "sample_windows_fused": "sample_windows_fused_kernel<3, 0>",
     "sample_windows_luma_fused": "sample_windows_fused_kernel<1, 0>",
 }
-LAUNCHED_INSTANCES = tuple(INSTANCE.values()) + tuple(
-    f"grouped_kernel<{c}, {WSIZE}, {a}>" for c in (3, 1) for a in range(1, 6))
+LAUNCHED_INSTANCES = tuple(dict.fromkeys(INSTANCE.values())) + tuple(
+    f"window_kernel<{c}, {WSIZE}, {a}>" for c in (3, 1) for a in range(1, 6))
+# the tiles the ungrouped records are timed at besides the plan's own
+SWEEP_TILES = (8, 16, 24, 32, 40, 48, 56, 64)
 
 
 def log(*a):
@@ -115,12 +130,12 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def window_sets(dev):
-    """Windows of real patch geometry at the main path's shapes: 4096
-    plane patches with their 6 best views (sortImages order), and the
-    4096 x 32 jittered refinement candidates of round 0 over the same
-    views. Returns the scene and, per set, (idx, lvl, tl, dx, dy, valid,
-    T, B) flattened T-major."""
+def window_sets(dev, n_points=4096, grouped=True):
+    """Windows of real patch geometry at the main path's shapes:
+    `n_points` plane patches with their 6 best views (sortImages order),
+    and (with `grouped`) the n_points x 32 jittered refinement
+    candidates of round 0 over the same views. Returns the scene and,
+    per set, (idx, lvl, tl, dx, dy, valid, T, B) flattened T-major."""
     import torch
 
     from mvskit_tpu_torch.geometry import camera as cam
@@ -132,7 +147,7 @@ def window_sets(dev):
     Ps, _, scene = synthetic.plane_scene(
         n_views=16, width=640, height=480, max_level=LEVEL + 3, device=dev
     )
-    coord_np, normal_np = synthetic.plane_points(Ps, 4096, seed=1, extent=0.8)
+    coord_np, normal_np = synthetic.plane_points(Ps, n_points, seed=1, extent=0.8)
     coord = torch.as_tensor(coord_np, dtype=torch.float32, device=dev)
     normal = torch.as_tensor(normal_np, dtype=torch.float32, device=dev)
     B = coord.shape[0]
@@ -156,6 +171,8 @@ def window_sets(dev):
                 flat(dx, (2,)), flat(dy, (2,)), valid, T, Bw)
 
     ungrouped = geometry(views, coord, normal)
+    if not grouped:
+        return scene, {"ungrouped": ungrouped}
 
     # round-0 refinement candidates (refine.refine_batch's encoding)
     ds, _ = vw.set_scales(scene, coord, views, LEVEL, TAU, WSIZE)
@@ -275,9 +292,87 @@ def measure(name, scene, wset, mode, group, fused=False):
     return rec, out_k
 
 
+def tile_times(scene, wset, mode):
+    """Device ms of the ungrouped launch on the same windows: with its
+    plan's tile forced to each of SWEEP_TILES (one stage, as the plan
+    takes), with the plan's own tile and two stages, and with the plan's
+    own tile under each prologue (the first tile's parameters staged by
+    cp.async, or read directly). Returns (tile_ms, two_stages_ms,
+    prologue_ms)."""
+    from mvskit_tpu_torch.ops import cuda_ncc
+    from mvskit_tpu_torch.tools.bench_kernel import cuda_time_ms
+
+    idx, lvl, tl, dx, dy = wset[:5]
+
+    def kern():
+        return cuda_ncc.sample_windows(scene, idx, lvl, tl, dx, dy, WSIZE,
+                                       luma=mode == "luma")[0]
+    tiles, prologue = {}, {}
+    for tile in SWEEP_TILES:
+        with cuda_ncc.tile_override(tile=tile):
+            tiles[tile] = cuda_time_ms(kern, 7)
+    with cuda_ncc.tile_override(stages=2):
+        two_stages = cuda_time_ms(kern, 7)
+    for name, direct in (("staged", False), ("direct", True)):
+        with cuda_ncc.tile_override(direct=direct):
+            prologue[name] = min(cuda_time_ms(kern, 7) for _ in range(2))
+    return tiles, two_stages, prologue
+
+
+def check_ungrouped(rec, scene, wset, mode, out):
+    """The ungrouped output against the grouped launch (groups of
+    N_CANDS) on the same windows, bit for bit (on the whole groups the
+    batch holds), and the ungrouped launch's plan."""
+    from mvskit_tpu_torch.ops import cuda_ncc
+    from mvskit_tpu_torch.tools.bench_kernel import bits_equal
+
+    n = wset[0].shape[0]
+    m = n - n % N_CANDS
+    luma = mode == "luma"
+    if m:
+        grp = cuda_ncc.sample_windows(scene, *(x[:m] for x in wset[:5]), WSIZE,
+                                      group=N_CANDS, luma=luma)[0]
+        rec["bitwise_equal_grouped"] = bits_equal(grp, out[:m])
+        if not rec["bitwise_equal_grouped"]:
+            raise AssertionError(f"{mode} ungrouped output differs from the grouped launch")
+    rec["plan"] = cuda_ncc.ungrouped_plan(n, WSIZE, luma)
+
+
+def floor_times(scene, wset, mode, out):
+    """Device ms, timed as the kernels are, of a launch that does next to
+    nothing (torch's fill of 4 floats), of writing an output of the
+    record's size (torch's fill of it), and of the ungrouped launch on
+    the record's first window alone: the floor every launch pays in
+    this timing, the floor of the record's stores, and the kernel's own
+    fixed chain (prologue, one pass, store)."""
+    import torch
+
+    from mvskit_tpu_torch.ops import cuda_ncc
+    from mvskit_tpu_torch.tools.bench_kernel import cuda_time_ms
+
+    tiny = torch.empty(4, device=out.device)
+    full = torch.empty_like(out)
+    one = tuple(x[:1] for x in wset[:5])
+    return {"fill_4_floats": cuda_time_ms(lambda: tiny.fill_(1.0), 7),
+            "fill_output": cuda_time_ms(lambda: full.fill_(1.0), 7),
+            "one_window": cuda_time_ms(lambda: cuda_ncc.sample_windows(
+                scene, *one, WSIZE, luma=mode == "luma")[0], 7)}
+
+
+def ungrouped_extras(rec, scene, wset, mode, out, ptxas):
+    """The ungrouped record's check against the grouped launch, its plan
+    and ptxas line, its times per tile and prologue, each K5 switch's
+    time on the same windows, and its timing floors."""
+    check_ungrouped(rec, scene, wset, mode, out)
+    rec["ptxas"] = ptxas.get(f"window_kernel<{1 if mode == 'luma' else 3}, {WSIZE}, 0>")
+    rec["tile_ms"], rec["two_stages_ms"], rec["prologue_ms"] = tile_times(scene, wset, mode)
+    rec["ablate_ms_same_windows"] = ablation_times(scene, wset, mode, 1)
+    rec["floor_ms"] = floor_times(scene, wset, mode, out)
+
+
 def ablation_times(scene, wset, mode, group):
-    """Device ms of the grouped form under each K5 switch on the same
-    windows: what each dropped stage of the work costs."""
+    """Device ms of the launch form of `group` under each K5 switch on
+    the same windows: what each dropped stage of the work costs."""
     from mvskit_tpu_torch.ops import cuda_ncc
     from mvskit_tpu_torch.tools.bench_kernel import cuda_time_ms
 
@@ -323,13 +418,22 @@ def kernel_phase(dev):
             rec["plan"] = cuda_ncc.grouped_plan(rec["windows"], WSIZE, group, mode == "luma")
             rec["ptxas"] = ptxas.get(INSTANCE[name])
             rec["ablate_ms_same_windows"] = ablation_times(scene, sets[wset], mode, group)
+            times = tile_times(scene, sets[wset], mode)
+            rec["ungrouped_same_windows"] = dict(
+                plan=cuda_ncc.ungrouped_plan(rec["windows"], WSIZE, mode == "luma"),
+                **dict(zip(("tile_ms", "two_stages_ms", "prologue_ms"), times)))
             del out_u
-        elif wset != "ungrouped":  # also at the gauntlet's shape
-            g, out_g = measure(name + " (gauntlet windows)", scene, sets["ungrouped"],
-                               mode, 1)
-            rec["gauntlet_windows"] = {k: g[k] for k in (
-                "windows", "ms", "plain_ms", "bound_ms", "bound_share")}
-            del out_g
+        else:  # the ungrouped forms, K1 and K3u
+            ungrouped_extras(rec, scene, sets[wset], mode, out, ptxas)
+            if wset != "ungrouped":  # also at the gauntlet's shape
+                g, out_g = measure(name + " (gauntlet windows)", scene, sets["ungrouped"],
+                                   mode, 1)
+                ungrouped_extras(g, scene, sets["ungrouped"], mode, out_g, ptxas)
+                rec["gauntlet_windows"] = {k: g[k] for k in (
+                    "windows", "ms", "plain_ms", "bound_ms", "bound_share",
+                    "bitwise_equal_grouped", "plan", "tile_ms", "two_stages_ms",
+                    "prologue_ms", "ablate_ms_same_windows", "floor_ms")}
+                del out_g
         rec["library_ms"] = None  # no single PyTorch call computes it (PERF.md)
         log(f"[kernel] {name} on {card}: " + json.dumps(rec))
         records[name] = rec
@@ -343,6 +447,35 @@ def kernel_phase(dev):
             f"{records[grouped]['bound_share']:.3f}), fused {records[fused]['ms']} ms, "
             f"grid {records[grouped]['plan']['grid']}, ptxas {records[grouped]['ptxas']}")
     return records
+
+
+def path_batch_phase(dev, batches):
+    """Phase 8: K1 at the median and the largest batch the RGB path gave
+    it, on that many gauntlet windows (plane patches x 6 views, the
+    first `n` T-major), timed, bounded and bit for bit against its plain
+    version and the grouped launch, with its times per tile, stages and
+    prologue and each K5 switch's time. Returns {"median"|"max":
+    record}."""
+    import torch
+
+    out = {}
+    for what, n in (("median", int(statistics.median(batches))), ("max", max(batches))):
+        scene, sets = window_sets(dev, n_points=-(-n // TAU), grouped=False)
+        idx, lvl, tl, dx, dy, valid = sets["ungrouped"][:6]
+        wset = (idx[:n], lvl[:n], tl[:n], dx[:n], dy[:n], valid.reshape(1, -1)[:, :n], 1, n)
+        rec, out_k = measure(f"sample_windows_ungrouped ({what} RGB path batch)", scene,
+                             wset, "rgb", 1)
+        check_ungrouped(rec, scene, wset, "rgb", out_k)
+        rec["tile_ms"], rec["two_stages_ms"], rec["prologue_ms"] = tile_times(
+            scene, wset, "rgb")
+        rec["ablate_ms_same_windows"] = ablation_times(scene, wset, "rgb", 1)
+        log(f"[batches] K1 at the RGB path's {what} batch: " + json.dumps(rec))
+        out[what] = {k: rec[k] for k in ("windows", "ms", "plain_ms", "bound_ms",
+                                         "bound_share", "max_abs_err", "plan",
+                                         "prologue_ms")}
+        del out_k, sets
+        torch.cuda.empty_cache()
+    return out
 
 
 def build_report():
@@ -406,8 +539,19 @@ def plane_quality(cloud):
     return m
 
 
-def summarize(tag, report, wall, launches, m):
-    """Log a path's stages, throughput, launches and quality."""
+def path_windows():
+    """Per launch form (and ablation switch) the path launched, its
+    windows per launch: count, median and max, and the batch sizes."""
+    from mvskit_tpu_torch.ops import cuda_ncc
+
+    return {k: {"count": len(v), "median": statistics.median(v), "max": max(v),
+                "batches": list(v)}
+            for k, v in cuda_ncc.WINDOWS.items() if v}
+
+
+def summarize(tag, report, wall, launches, windows, m):
+    """Log a path's stages, throughput, launches, windows per launch and
+    quality (the batch-size lists stay out of the log line)."""
     for st in report["stages"]:
         log(f"[{tag}] stage {json.dumps(st)}")
     hyp = sum(s.get("hypotheses", 0) for s in report["stages"])
@@ -417,8 +561,11 @@ def summarize(tag, report, wall, launches, m):
                "alive_per_iter": report["alive_per_iter"],
                "filter_kills": report["filters"], "hypotheses": hyp,
                "propagate_s": prop_s, "hypotheses_per_s": hyp / max(prop_s, 1e-9),
-               "peak_mem_gib": report.get("peak_mem_gib"), "quality": m}
+               "peak_mem_gib": report.get("peak_mem_gib"), "quality": m,
+               "windows": {k: {f: v[f] for f in ("count", "median", "max")}
+                           for k, v in windows.items()}}
     log(f"[{tag}] summary " + json.dumps(summary))
+    summary["batches"] = {k: v["batches"] for k, v in windows.items()}
     return summary
 
 
@@ -433,7 +580,7 @@ def check_quality(tag, m, limits):
 def cli_path(tag, dev, prefix, *flags):
     """The port's CLI on `prefix` (with extra `flags`) with the launch
     counters reset just before and read just after. Returns (report,
-    wall, launches, m)."""
+    wall, launches, windows, m)."""
     import torch
 
     from mvskit_tpu_torch import cli
@@ -450,6 +597,7 @@ def cli_path(tag, dev, prefix, *flags):
                    "--report", report_path, *flags])
     wall = time.time() - t0
     launches = dict(cuda_ncc.LAUNCHES)
+    windows = path_windows()
     if rc != 0:
         raise AssertionError(f"{tag}: cli.main returned {rc}")
     with open(report_path) as f:
@@ -463,13 +611,13 @@ def cli_path(tag, dev, prefix, *flags):
     if report["final_alive"] <= 0 or cloud.shape[0] != report["final_alive"]:
         raise AssertionError(f"{tag}: bad final cloud {cloud.shape[0]} vs "
                              f"{report['final_alive']}")
-    return report, wall, launches, plane_quality(cloud)
+    return report, wall, launches, windows, plane_quality(cloud)
 
 
 def engine_path(tag, dev, prefix, scene=None, **overrides):
     """PMMVS through the Python API (the luma search has no CLI flag),
     seed + run, with the launch counters reset just before and read
-    just after. Returns (engine, report, wall, launches, m)."""
+    just after. Returns (engine, report, wall, launches, windows, m)."""
     import numpy as np
     import torch
 
@@ -492,6 +640,7 @@ def engine_path(tag, dev, prefix, scene=None, **overrides):
             torch.cuda.synchronize(dev)
         wall = time.time() - t0
         launches = dict(cuda_ncc.LAUNCHES)
+        windows = path_windows()
         data = engine.collect()
     finally:
         engine.close()
@@ -500,7 +649,7 @@ def engine_path(tag, dev, prefix, scene=None, **overrides):
     cloud = data["coord"][:, :3]
     if cloud.shape[0] <= 0 or not np.isfinite(cloud).all():
         raise AssertionError(f"{tag}: bad final cloud of {cloud.shape[0]} points")
-    return engine, report, wall, launches, plane_quality(cloud)
+    return engine, report, wall, launches, windows, plane_quality(cloud)
 
 
 def paths_phase(dev, workdir):
@@ -515,16 +664,15 @@ def paths_phase(dev, workdir):
     t0 = time.time()
     synthetic.write_dataset(plane, **size)
     log(f"[main] dataset written in {time.time() - t0:.2f} s")
-    report, wall, launches, m = cli_path("main", dev, plane)
-    out["rgb"] = summarize("main", report, wall, launches, m)
+    out["rgb"] = summarize("main", *cli_path("main", dev, plane))
 
     # 4. luma search, full depth, then a short ungrouped run
-    engine, report, wall, launches, m = engine_path("luma", dev, plane, luma_refine=True)
-    out["luma"] = summarize("luma", report, wall, launches, m)
-    _, report, wall, launches, m = engine_path(
-        "luma_ungrouped", dev, plane, scene=engine.scene, luma_refine=True,
-        refine_group_dma=False, n_iterations=1, prop_rounds=2)
-    out["luma_ungrouped"] = summarize("luma_ungrouped", report, wall, launches, m)
+    engine, *res = engine_path("luma", dev, plane, luma_refine=True)
+    out["luma"] = summarize("luma", *res)
+    _, *res = engine_path("luma_ungrouped", dev, plane, scene=engine.scene,
+                          luma_refine=True, refine_group_dma=False, n_iterations=1,
+                          prop_rounds=2)
+    out["luma_ungrouped"] = summarize("luma_ungrouped", *res)
     del engine
 
     # 5. multi-illumination
@@ -532,17 +680,17 @@ def paths_phase(dev, workdir):
     t0 = time.time()
     synthetic.write_dataset(il3, nillums=3, **size)
     log(f"[illum3] dataset written in {time.time() - t0:.2f} s")
-    report, wall, launches, m = cli_path("illum3", dev, il3)
-    out["illum3"] = summarize("illum3", report, wall, launches, m)
-    out["illum3"]["n_illums"] = report["prop_params"]["n_illums"]
+    res = cli_path("illum3", dev, il3)
+    out["illum3"] = summarize("illum3", *res)
+    out["illum3"]["n_illums"] = res[0]["prop_params"]["n_illums"]
     return out
 
 
 def pmvs_phase(dev, workdir):
     """Phase 7: the pmvs strategy through the CLI on phase 3's dataset."""
-    report, wall, launches, m = cli_path("pmvs", dev, os.path.join(workdir, "plane16"),
-                                         "--strategy", "pmvs")
-    summary = summarize("pmvs", report, wall, launches, m)
+    res = cli_path("pmvs", dev, os.path.join(workdir, "plane16"), "--strategy", "pmvs")
+    report = res[0]
+    summary = summarize("pmvs", *res)
     summary["accepted_per_iter"] = [st["accepted"] for st in report["stages"]
                                     if st["stage"].startswith("propagate")]
     if report["strategy"] != "pmvs":
@@ -618,6 +766,9 @@ def main() -> int:
         log(f"[bench] phase {time.time() - t0:.2f} s")
         paths["pmvs"] = pmvs_phase(dev, work)
     check_paths(paths)
+    t0 = time.time()
+    k1_batches = path_batch_phase(dev, paths["rgb"]["batches"]["ungrouped"])
+    log(f"[batches] phase {time.time() - t0:.2f} s")
     for form in ("fused", "luma_fused", *(f"ablate_{a}" for a in cuda_ncc.ABLATIONS[1:])):
         if bench_launches[form] <= 0:
             raise AssertionError(f"bench path missed {form}: {bench_launches}")
@@ -635,9 +786,19 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         }
-        if "plan" in r:  # the grouped forms, K2 and K3g
-            entry.update(bound_share=r["bound_share"], grid=r["plan"]["grid"],
-                         ptxas=r["ptxas"], fused_ms_same_windows=r["fused_ms_same_windows"])
+        if "plan" in r:  # the window kernel's forms, K1, K2, K3u and K3g
+            entry.update(windows=r["windows"], bound_share=r["bound_share"], plan=r["plan"],
+                         ptxas=r["ptxas"])
+        if "fused_ms_same_windows" in r:  # K2 and K3g
+            entry["fused_ms_same_windows"] = r["fused_ms_same_windows"]
+        if "bitwise_equal_grouped" in r and not fused:  # K1 and K3u
+            entry.update(bitwise_equal_grouped=r["bitwise_equal_grouped"],
+                         prologue_ms=r["prologue_ms"])
+        if form == "ungrouped":
+            entry["path_batches"] = k1_batches
+        if "gauntlet_windows" in r:  # K3u
+            entry["gauntlet_windows"] = {k: r["gauntlet_windows"][k] for k in (
+                "windows", "ms", "bound_ms", "plan", "prologue_ms")}
         kernels.append(entry)
     # one entry per ablation switch: its grouped RGB run on the bench
     # path, with the grouped luma run beside it

@@ -20,40 +20,43 @@
 // contraction) and the taps accumulate in the order f00, f10, f01, f11,
 // so the kernel equals its plain PyTorch version bit for bit.
 //
-// Ungrouped form (K1, rgb=True, group=1): one thread per (window,
-// sample); neighbouring threads sample neighbouring lattice points of one
-// window, so their taps share cache lines, and the three channel stores
-// are coalesced. Bound on the H100: four dependent 4-byte loads per
-// sample from L2 or HBM (latency, not bandwidth). The planes of one scene
-// (16 views x 640x480 x 4 levels, packed RGB, about 26 MB) fit in the
-// 50 MB L2.
-//
 // Luma forms (K3, rgb=False): the same kernel's f32 luma mode
 // (pallas_ncc.py:190). They read the quad-packed luma planes
 // (Scene.planes_luma_quad: y00 | y10<<8 | y01<<16 | y11<<24 per pixel),
 // so one 4-byte load carries all four taps of a sample, and write
 // out[b, s] = y00*dx0*dy0 + y10*dx1*dy0 + y01*dx0*dy1 + y11*dx1*dy1,
 // evaluated left to right with every operation rounded alone, as its
-// plain version (ops/sampling.py::sample_luma_quad) does. The ungrouped
-// luma form (K3u) is one thread per (window, sample), as K1.
+// plain version (ops/sampling.py::sample_luma_quad) does.
 //
-// Grouped forms (K2 RGB, K3g luma): replace _make_kernel with
-// group=refine_cands (pallas_ncc.py:190; 32 on the main path): every
-// `group` consecutive windows are the jittered candidates of one
-// (patch, view). The TPU kernel DMAs the group's bounding tile into VMEM
-// once. On the H100 the work is bound by its stores: 786,432 refinement
+// Every launch takes the view index of each window and the scene's
+// illumination count ni and illumination illum; the plane row it reads
+// is idx * ni + illum, computed where the window's member entry is
+// resolved (no index tensor is built per call).
+//
+// Ungrouped and grouped forms (K1 and K2 RGB, K3u and K3g luma): one
+// template, window_kernel<C, WS, ABL> (C = 3 or 1 channels, WS the
+// window size, ABL the K5 switch), over tiles of G consecutive windows.
+// The grouped forms replace _make_kernel with group=refine_cands
+// (pallas_ncc.py:190; 32 on the main path): a tile is one candidate
+// group. The ungrouped forms (group=1) cut the batch into tiles of
+// independent windows: nothing in the kernel needs a tile's members to
+// share a patch, and the output rows [B, C * S] of consecutive windows
+// are one contiguous run either way. On the H100 the work is bound by
+// issued instructions and stores, not by tap bytes: 786,432 refinement
 // windows write 462 MB of RGB rows (154 MB luma) against about 25 MB of
-// window parameters, and the taps are mostly L2 hits. One template,
-// grouped_kernel<C, WS, ABL> (C = 3 or 1 channels, WS the window size,
-// ABL the K5 switch), answers that:
-//   * persistent blocks: min(groups, SMs x resident blocks per SM)
+// window parameters, and the taps (planes of about 26 MB for 16 views
+// x 640x480 x 4 levels) are mostly hits in the 50 MB L2. The design:
+//   * persistent blocks: min(tiles, SMs x resident blocks per SM)
 //     blocks (queried once per device and instance, cached) walk the
-//     groups with stride gridDim.x;
-//   * staged parameters: a group's slices of img, lvl, tl, dx and dy are
-//     contiguous (1 KB at group 32); the next group's are copied into a
-//     double buffer in shared memory with cp.async while the current
-//     group samples;
-//   * a member table, resolved once per group: each member's plane base,
+//     tiles with stride gridDim.x;
+//   * staged parameters: a tile's slices of idx, lvl, tl, dx and dy are
+//     contiguous (1 KB at 32 windows); the next tile's are copied into
+//     a double buffer in shared memory with cp.async while the current
+//     tile samples; a block's first tile is copied the same way (the
+//     grouped forms), or read straight from global memory into the
+//     member table (the ungrouped forms' direct prologue: most of their
+//     blocks take one tile, and nothing overlaps that copy);
+//   * a member table, resolved once per tile: each member's plane base,
 //     level width and height (the 8-way level select once per member,
 //     not per sample) and the lattice's partial sums tl + dx * i and
 //     dy * j, so a sample's position costs one add per coordinate with
@@ -61,33 +64,47 @@
 //   * no shared-memory box (the first K2 loaded one and lost to plain L2
 //     reads): every tap is read from L2 with __ldg;
 //   * loads ahead of arithmetic: each thread takes MVS_KC samples of the
-//     group per pass and issues all their tap loads (4 per RGB sample, 1
+//     tile per pass and issues all their tap loads (4 per RGB sample, 1
 //     per luma sample) before any of their arithmetic, in an unrolled
-//     loop of constant trip count. The work is bound by issued
-//     instructions as much as by bytes, so resident warps count for more
-//     than loads per thread: more samples a pass hold more registers,
-//     leave fewer blocks per SM and measured slower (PERF.md §6);
+//     loop of constant trip count. Resident warps count for more than
+//     loads per thread: more samples a pass hold more registers, leave
+//     fewer blocks per SM and measured slower (PERF.md §6);
 //   * WS = 7 (MVSConfig.wsize's default) is compiled for its size, so
 //     the divisions by S and by wsize are by constants; every other size
 //     runs the same code with wsize read at run time (WS = 0);
-//   * the output through shared memory and TMA: the group's rows go into
+//   * the output through shared memory and TMA: the tile's rows go into
 //     one of two output stages (18,816 B RGB, 6,272 B luma at 32 x 7x7;
-//     one stage where two exceed the card's shared memory), then one
-//     thread stores the stage with one 1-D bulk copy
-//     (cp.async.bulk.global.shared::cta) after fence.proxy.async; the
-//     store of group g overlaps the loads and arithmetic of group g+1,
-//     and a stage is rewritten only after cp.async.bulk.wait_group.read
-//     1 (at most the other stage's store still reading it out).
-//     A run that is not a multiple of 16 bytes (group 2, luma, 7x7: 392
-//     B) or an output that is not 16-byte aligned is stored by the same
-//     kernel with coalesced float stores from the stage, decided once per
-//     launch from the arguments;
-//   * a shared-memory request the card refuses (RGB group 128 at 15x15)
-//     returns its error, and the wrapper raises.
-// The sample routines are those of the ungrouped forms, with the same
-// rounding, so the grouped output equals the ungrouped one and the plain
-// version bit for bit. Tensor cores do not apply: a bilinear gather has
-// no matrix-product form that keeps this rounding (and the TPU's one-hot
+//     one stage where two exceed the card's shared memory, and in the
+//     ungrouped plan), then one thread stores the stage with
+//     one 1-D bulk copy (cp.async.bulk.global.shared::cta) after
+//     fence.proxy.async; the store of tile t overlaps the loads and
+//     arithmetic of tile t+1, and a stage is rewritten only after
+//     cp.async.bulk.wait_group.read (at most the other stage's store
+//     still reading it out). A run that is not a multiple of 16 bytes
+//     (group 2, luma, 7x7: 392 B; a ragged last tile of 1-3 windows) or
+//     an output that is not 16-byte aligned is stored with coalesced
+//     float stores from the stage, decided per tile;
+//   * the ragged last tile: B is any positive count; the last tile holds
+//     B - t * G windows, and its parameter copy, member table, sampling
+//     and store cover those alone (no read past B);
+//   * the tile plan: the grouped forms take G = group and two stages
+//     where they fit; a shared-memory request the card refuses (RGB
+//     group 128 at 15x15) returns its error, and the wrapper raises. The
+//     ungrouped forms (plan_ungrouped) take 256 threads, one stage and
+//     the smallest G, a multiple of 4 (16-byte parameter copies, TMA
+//     stores of 7x7 runs), whose tiles all fit the card's resident
+//     blocks at once (the gauntlet's 24,576 RGB windows: G = 32, 768
+//     blocks of one tile each), else the largest tile (64 windows of
+//     7x7), which a large batch's blocks walk several of; no window size
+//     or batch it takes is refused. Small batches stay far from their
+//     bound whatever the tile: at 24,576 windows the tiles from 16 to 64
+//     measured close together (PERF.md §6), and a launch's fixed costs
+//     (block start, the parameter fetch, the closing store) set much of
+//     their time.
+// The sample routines keep the gather path's rounding, so every form
+// equals the plain version, and the grouped launch equals the ungrouped
+// one, bit for bit. Tensor cores do not apply: a bilinear gather has no
+// matrix-product form that keeps this rounding (and the TPU's one-hot
 // product, K4, lost to its gather).
 //
 // Fused form (K4): replaces _make_kernel with fused=True, group > 1
@@ -130,12 +147,17 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <atomic>
+#include <map>
 #include <mutex>
+#include <set>
+#include <tuple>
+#include <utility>
 
 #define MVS_MAX_LEVELS 8
 #define MVS_MAX_GROUP 128
 #define MVS_THREADS 256
-#define MVS_KC 2  // grouped form: samples per thread per pass
+#define MVS_KC 2  // window kernel: samples per thread per pass
 #define MVS_STATIC_SMEM_LIMIT 49152
 
 // ablation switches, in the order of ops/cuda_ncc.py::ABLATIONS
@@ -338,9 +360,9 @@ __device__ __forceinline__ float luma_at(const int* __restrict__ base, int w,
   return luma_sample<ABL>(tap<ABL>(base + f.ly * w + f.lx), f);
 }
 
-// a group's window parameters and level metadata in shared memory:
-// per member its plane base offset (in ints), level width and height,
-// and the six lattice floats
+// a group's window parameters and level metadata in shared memory (the
+// fused form): per member its plane base offset (in ints), level width
+// and height, and the six lattice floats
 struct GroupParams {
   int64_t base[MVS_MAX_GROUP];
   int w[MVS_MAX_GROUP], h[MVS_MAX_GROUP];
@@ -348,18 +370,19 @@ struct GroupParams {
 };
 
 __device__ __forceinline__ void stage_group(GroupParams& g, const LevelMeta& meta,
-                                            int total, const int* __restrict__ img,
+                                            int total, int ni, int illum,
+                                            const int* __restrict__ idx,
                                             const int* __restrict__ lvl,
                                             const float* __restrict__ tl,
                                             const float* __restrict__ dx,
                                             const float* __restrict__ dy,
-                                            int b0, int group) {
+                                            int64_t b0, int group) {
   if (threadIdx.x < group) {
     const int m = threadIdx.x;
-    const int b = b0 + m;
+    const int64_t b = b0 + m;
     int off, w, h;
     level_meta(meta, clamp_level(lvl[b], meta.n), off, w, h);
-    g.base[m] = (int64_t)img[b] * total + off;
+    g.base[m] = (int64_t)(idx[b] * ni + illum) * total + off;
     g.w[m] = w;
     g.h[m] = h;
     g.lat[0][m] = tl[2 * b];
@@ -372,53 +395,7 @@ __device__ __forceinline__ void stage_group(GroupParams& g, const LevelMeta& met
   __syncthreads();
 }
 
-template <int ABL>
-__global__ void __launch_bounds__(MVS_THREADS)
-sample_windows_ungrouped_kernel(const int* __restrict__ planes, LevelMeta meta,
-                                int total, const int* __restrict__ img,
-                                const int* __restrict__ lvl,
-                                const float* __restrict__ tl,
-                                const float* __restrict__ dx,
-                                const float* __restrict__ dy,
-                                float* __restrict__ out, int B, int wsize) {
-  const int S = wsize * wsize;
-  int64_t gid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (gid >= (int64_t)B * S) return;
-  const int b = (int)(gid / S);
-  const int s = (int)(gid - (int64_t)b * S);
-  int off, w, h;
-  level_meta(meta, clamp_level(lvl[b], meta.n), off, w, h);
-  float r, g, bl;
-  rgb_at<ABL>(planes + (int64_t)img[b] * total + off, w, h, tl[2 * b],
-              tl[2 * b + 1], dx[2 * b], dx[2 * b + 1], dy[2 * b],
-              dy[2 * b + 1], s, wsize, r, g, bl);
-  store_rgb(out + (int64_t)b * 3 * S, s, S, r, g, bl);
-}
-
-template <int ABL>
-__global__ void __launch_bounds__(MVS_THREADS)
-sample_windows_luma_ungrouped_kernel(const int* __restrict__ planes,
-                                     LevelMeta meta, int total,
-                                     const int* __restrict__ img,
-                                     const int* __restrict__ lvl,
-                                     const float* __restrict__ tl,
-                                     const float* __restrict__ dx,
-                                     const float* __restrict__ dy,
-                                     float* __restrict__ out, int B,
-                                     int wsize) {
-  const int S = wsize * wsize;
-  int64_t gid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (gid >= (int64_t)B * S) return;
-  const int b = (int)(gid / S);
-  const int s = (int)(gid - (int64_t)b * S);
-  int off, w, h;
-  level_meta(meta, clamp_level(lvl[b], meta.n), off, w, h);
-  const int* base = planes + (int64_t)img[b] * total + off;
-  out[gid] = luma_at<ABL>(base, w, h, tl[2 * b], tl[2 * b + 1], dx[2 * b],
-                          dx[2 * b + 1], dy[2 * b], dy[2 * b + 1], s, wsize);
-}
-
-// ---- K2 / K3g: the grouped form (C = 3 RGB or C = 1 luma) ----
+// ---- K1, K2, K3u, K3g: the persistent window kernel ----
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -469,36 +446,48 @@ __device__ __forceinline__ void bulk_wait_all() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-// A group's raw parameters in shared memory, 8 * group words: img
-// [0, G), lvl [G, 2G), tl [2G, 4G), dx [4G, 6G), dy [6G, 8G). Word w of
-// group b0's slices in global memory:
+// A tile's raw parameters in shared memory, 8 * G words: idx [0, G),
+// lvl [G, 2G), tl [2G, 4G), dx [4G, 6G), dy [6G, 8G). Word w of the
+// tile that starts at window b0, in global memory:
 __device__ __forceinline__ const int* param_word(
-    int w, int G, int b0, const int* __restrict__ img, const int* __restrict__ lvl,
+    int w, int G, int64_t b0, const int* __restrict__ idx, const int* __restrict__ lvl,
     const float* __restrict__ tl, const float* __restrict__ dx,
     const float* __restrict__ dy) {
-  if (w < G) return img + b0 + w;
+  if (w < G) return idx + b0 + w;
   if (w < 2 * G) return lvl + b0 + (w - G);
   const int seg = (w - 2 * G) / (2 * G);
   const float* src = seg == 0 ? tl : (seg == 1 ? dx : dy);
   return reinterpret_cast<const int*>(src) + 2 * b0 + (w - 2 * G - seg * 2 * G);
 }
 
-// start the asynchronous copy of group b0's parameters into `dst`: 16-byte
-// cp.async where every slice is 16-byte aligned (vec16), else 4-byte
+// start the asynchronous copy of the parameters of the n windows from b0
+// into `dst` (laid out for G): 16-byte cp.async where the tile is whole
+// and every slice 16-byte aligned (vec16), else 4-byte, word by word of
+// the n members only, so a ragged last tile reads nothing past the batch
 __device__ __forceinline__ void copy_params(
-    int* dst, int G, int b0, bool vec16, const int* __restrict__ img,
+    int* dst, int G, int64_t b0, int n, bool vec16, const int* __restrict__ idx,
     const int* __restrict__ lvl, const float* __restrict__ tl,
     const float* __restrict__ dx, const float* __restrict__ dy) {
-  if (vec16) {  // G % 4 == 0: no 4-word chunk straddles two slices
+  if (vec16 && n == G) {  // G % 4 == 0: no 4-word chunk straddles two slices
     for (int k = threadIdx.x; k < 2 * G; k += blockDim.x)
-      cp_async16(dst + 4 * k, param_word(4 * k, G, b0, img, lvl, tl, dx, dy));
+      cp_async16(dst + 4 * k, param_word(4 * k, G, b0, idx, lvl, tl, dx, dy));
   } else {
-    for (int w = threadIdx.x; w < 8 * G; w += blockDim.x)
-      cp_async4(dst + w, param_word(w, G, b0, img, lvl, tl, dx, dy));
+    // the n members' words: idx [0, n), lvl [n, 2n), then 2n each of
+    // tl, dx and dy; w is the word's place in the G layout
+    for (int k = threadIdx.x; k < 8 * n; k += blockDim.x) {
+      int w = k;
+      if (k >= 2 * n) {
+        const int seg = (k - 2 * n) / (2 * n);
+        w = 2 * G + seg * 2 * G + (k - 2 * n - seg * 2 * n);
+      } else if (k >= n) {
+        w = G + (k - n);
+      }
+      cp_async4(dst + w, param_word(w, G, b0, idx, lvl, tl, dx, dy));
+    }
   }
 }
 
-// A group's member table in shared memory, resolved once per group from
+// A tile's member table in shared memory, resolved once per tile from
 // its raw parameters: per member m its plane base (in ints) and level
 // width and height, and the lattice's partial sums
 //   a[m * ws + i] = (tl.x + dx.x * i, tl.y + dx.y * i),
@@ -512,38 +501,57 @@ struct Members {
   float2* c;      // [G * ws]
 };
 
-template <int ABL>
-__device__ __forceinline__ void resolve_members(const int* raw, const Members& t,
-                                                const LevelMeta& meta, int total,
-                                                int G, int ws) {
-  const float* tl = reinterpret_cast<const float*>(raw) + 2 * G;
-  const float* dx = tl + 2 * G;
-  const float* dy = dx + 2 * G;
-  for (int m = threadIdx.x; m < G; m += blockDim.x) {
+// a parameter word from the staged copy in shared memory, or (GLOBAL)
+// from global memory through the read-only path
+template <bool GLOBAL, typename T>
+__device__ __forceinline__ T param(const T* p) {
+  return GLOBAL ? __ldg(p) : *p;
+}
+
+// the member table of the tile's n windows, whose parameters start at
+// idx, lvl, tl, dx and dy (in shared memory, or in global memory)
+template <int ABL, bool GLOBAL>
+__device__ __forceinline__ void resolve_members(
+    const int* idx, const int* lvl, const float* tl, const float* dx, const float* dy,
+    const Members& t, const LevelMeta& meta, int total, int ni, int illum, int n,
+    int ws) {
+  for (int m = threadIdx.x; m < n; m += blockDim.x) {
     int off, w, h;
-    level_meta(meta, clamp_level(raw[G + m], meta.n), off, w, h);
-    t.base[m] = (int64_t)raw[m] * total + off;
+    level_meta(meta, clamp_level(param<GLOBAL>(lvl + m), meta.n), off, w, h);
+    t.base[m] = (int64_t)(param<GLOBAL>(idx + m) * ni + illum) * total + off;
     t.wh[m] = make_int2(w, h);
   }
-  for (int e = threadIdx.x; e < G * ws; e += blockDim.x) {
+  for (int e = threadIdx.x; e < n * ws; e += blockDim.x) {
     const int m = e / ws;
     const float k = ABL == ABL_NOWX ? 0.0f : (float)(e - m * ws);
-    t.a[e] = make_float2(__fadd_rn(tl[2 * m], __fmul_rn(dx[2 * m], k)),
-                         __fadd_rn(tl[2 * m + 1], __fmul_rn(dx[2 * m + 1], k)));
-    t.c[e] = make_float2(__fmul_rn(dy[2 * m], k), __fmul_rn(dy[2 * m + 1], k));
+    const float tx = param<GLOBAL>(tl + 2 * m), ty = param<GLOBAL>(tl + 2 * m + 1);
+    const float dxx = param<GLOBAL>(dx + 2 * m), dxy = param<GLOBAL>(dx + 2 * m + 1);
+    const float dyx = param<GLOBAL>(dy + 2 * m), dyy = param<GLOBAL>(dy + 2 * m + 1);
+    t.a[e] = make_float2(__fadd_rn(tx, __fmul_rn(dxx, k)), __fadd_rn(ty, __fmul_rn(dxy, k)));
+    t.c[e] = make_float2(__fmul_rn(dyx, k), __fmul_rn(dyy, k));
   }
 }
 
-// one group's group * S samples into its stage (rows [C * S],
-// channel-major), MVS_KC samples per thread per pass: every tap load of
-// the pass is issued before any of its arithmetic
+// the member table from a raw parameter buffer in shared memory
+template <int ABL>
+__device__ __forceinline__ void resolve_staged(const int* raw, int G, const Members& t,
+                                               const LevelMeta& meta, int total, int ni,
+                                               int illum, int n, int ws) {
+  const float* f = reinterpret_cast<const float*>(raw);
+  resolve_members<ABL, false>(raw, raw + G, f + 2 * G, f + 4 * G, f + 6 * G, t, meta,
+                              total, ni, illum, n, ws);
+}
+
+// one tile's n * S samples into its stage (rows [C * S], channel-major),
+// MVS_KC samples per thread per pass: every tap load of the pass is
+// issued before any of its arithmetic
 template <int C, int WS, int ABL>
-__device__ __forceinline__ void sample_group(const int* __restrict__ planes,
-                                             const Members& t, int G, int wsize,
-                                             float* st) {
+__device__ __forceinline__ void sample_tile(const int* __restrict__ planes,
+                                            const Members& t, int n_members, int wsize,
+                                            float* st) {
   const int ws = WS > 0 ? WS : wsize;  // a constant in the WS > 0 instance
   const int S = ws * ws;
-  const int n = G * S;
+  const int n = n_members * S;
   const int T = blockDim.x;
   for (int p0 = threadIdx.x; p0 < n; p0 += T * MVS_KC) {
     int v[MVS_KC][4];  // RGB: taps 00, 10, 01, 11; luma: the quad in [0]
@@ -590,24 +598,33 @@ __device__ __forceinline__ void sample_group(const int* __restrict__ planes,
   }
 }
 
-// The grouped form: persistent blocks, each walking the groups with
-// stride gridDim.x. Dynamic shared memory (plan_grouped): `nstages`
-// output stages of stage_floats floats, two raw parameter buffers
-// (8 * G words each), then the member table. Per group: the next group's
-// parameters are copied in with cp.async while this group samples; the
-// stage goes out as one TMA bulk store (tma) that overlaps the next
-// group's work, or as coalesced float stores where the run is not
-// 16-byte sized and aligned. The member table is rewritten for the next
-// group only after the barrier that ends this group's sampling.
+// windows of tile `tile`: G, or what is left of the batch
+__device__ __forceinline__ int tile_members(int tile, int G, int B) {
+  const int64_t left = (int64_t)B - (int64_t)tile * G;
+  return left < G ? (int)left : G;
+}
+
+// The window kernel: persistent blocks, each walking the tiles of G
+// consecutive windows with stride gridDim.x. Dynamic shared memory
+// (plan_tiles): `nstages` output stages of stage_floats floats, two raw
+// parameter buffers (8 * G words each), then the member table. A block
+// resolves its first tile's members from a staged copy, or straight from
+// global memory (direct). Per tile: the next tile's parameters are
+// copied in with cp.async while this tile samples; the stage goes out as
+// one TMA bulk store (tma) that overlaps the next tile's work, or as
+// coalesced float stores where the tile's run is not 16-byte sized (a
+// ragged last tile) or aligned. The member table is rewritten for the
+// next tile only after the barrier that ends this tile's sampling.
 template <int C, int WS, int ABL>
 __global__ void __launch_bounds__(MVS_THREADS)
-grouped_kernel(const int* __restrict__ planes, LevelMeta meta, int total,
-               const int* __restrict__ img, const int* __restrict__ lvl,
-               const float* __restrict__ tl, const float* __restrict__ dx,
-               const float* __restrict__ dy, float* __restrict__ out,
-               int ngroups, int wsize, int G, int stage_floats, int nstages,
-               int tma, int vec16) {
+window_kernel(const int* __restrict__ planes, LevelMeta meta, int total, int ni,
+              int illum, const int* __restrict__ idx, const int* __restrict__ lvl,
+              const float* __restrict__ tl, const float* __restrict__ dx,
+              const float* __restrict__ dy, float* __restrict__ out, int B, int wsize,
+              int G, int stage_floats, int nstages, int tma, int vec16, int direct) {
   const int ws = WS > 0 ? WS : wsize;
+  const int S = ws * ws;
+  const int ntiles = (B - 1) / G + 1;
   extern __shared__ float4 smem4[];
   float* stage = reinterpret_cast<float*>(smem4);
   int* raw = reinterpret_cast<int*>(stage + nstages * stage_floats);
@@ -616,36 +633,48 @@ grouped_kernel(const int* __restrict__ planes, LevelMeta meta, int total,
   t.wh = reinterpret_cast<int2*>(t.base + G);
   t.a = reinterpret_cast<float2*>(t.wh + G);
   t.c = t.a + G * ws;
-  const int run = G * C * ws * ws;  // floats per group
+  const int64_t run = (int64_t)G * C * S;  // floats per whole tile
 
   int g = blockIdx.x;
-  copy_params(raw, G, g * G, vec16, img, lvl, tl, dx, dy);
-  cp_async_commit();
-  cp_async_wait_all();
-  __syncthreads();
-  resolve_members<ABL>(raw, t, meta, total, G, ws);
-  for (int it = 0; g < ngroups; g += gridDim.x, ++it) {
+  int n = tile_members(g, G, B);
+  if (direct) {
+    const int64_t b0 = (int64_t)g * G;
+    resolve_members<ABL, true>(idx + b0, lvl + b0, tl + 2 * b0, dx + 2 * b0, dy + 2 * b0,
+                               t, meta, total, ni, illum, n, ws);
+  } else {
+    copy_params(raw, G, (int64_t)g * G, n, vec16, idx, lvl, tl, dx, dy);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    resolve_staged<ABL>(raw, G, t, meta, total, ni, illum, n, ws);
+  }
+  for (int it = 0; g < ntiles; g += gridDim.x, ++it) {
     const int nxt = (it & 1) ^ 1;
     const int next = g + gridDim.x;
-    if (next < ngroups)
-      copy_params(raw + nxt * 8 * G, G, next * G, vec16, img, lvl, tl, dx, dy);
+    const int n_next = next < ntiles ? tile_members(next, G, B) : 0;
+    if (n_next)
+      copy_params(raw + nxt * 8 * G, G, (int64_t)next * G, n_next, vec16, idx, lvl, tl,
+                  dx, dy);
     cp_async_commit();
     float* st = stage + (nstages == 2 ? it & 1 : 0) * stage_floats;
     if (tma && threadIdx.x == 0) {  // the store that last read `st` is done
       if (nstages == 2) bulk_wait_read<1>(); else bulk_wait_read<0>();
     }
     __syncthreads();  // members resolved, `st` free
-    sample_group<C, WS, ABL>(planes, t, G, wsize, st);
+    sample_tile<C, WS, ABL>(planes, t, n, wsize, st);
     if (tma) fence_proxy_async();
     cp_async_wait_all();
     __syncthreads();  // stage complete, next parameters arrived
     float* gout = out + (int64_t)g * run;
-    if (tma) {
-      if (threadIdx.x == 0) bulk_store(gout, st, run * (int)sizeof(float));
+    const int n_out = n * C * S;
+    if (tma && n_out % 4 == 0) {
+      if (threadIdx.x == 0) bulk_store(gout, st, n_out * (int)sizeof(float));
     } else {
-      for (int k = threadIdx.x; k < run; k += blockDim.x) gout[k] = st[k];
+      for (int k = threadIdx.x; k < n_out; k += blockDim.x) gout[k] = st[k];
     }
-    if (next < ngroups) resolve_members<ABL>(raw + nxt * 8 * G, t, meta, total, G, ws);
+    if (n_next)
+      resolve_staged<ABL>(raw + nxt * 8 * G, G, t, meta, total, ni, illum, n_next, ws);
+    n = n_next;
   }
   if (tma && threadIdx.x == 0) bulk_wait_all();
 }
@@ -656,7 +685,8 @@ grouped_kernel(const int* __restrict__ planes, LevelMeta meta, int total,
 template <int C, int ABL>
 __global__ void __launch_bounds__(MVS_THREADS)
 sample_windows_fused_kernel(const int* __restrict__ planes, LevelMeta meta,
-                            int total, const int* __restrict__ img,
+                            int total, int ni, int illum,
+                            const int* __restrict__ idx,
                             const int* __restrict__ lvl,
                             const float* __restrict__ tl,
                             const float* __restrict__ dx,
@@ -666,8 +696,8 @@ sample_windows_fused_kernel(const int* __restrict__ planes, LevelMeta meta,
   float* s_out = reinterpret_cast<float*>(s_out4);
   __shared__ GroupParams g;
   const int S = wsize * wsize;
-  const int b0 = blockIdx.x * group;
-  stage_group(g, meta, total, img, lvl, tl, dx, dy, b0, group);
+  const int64_t b0 = (int64_t)blockIdx.x * group;
+  stage_group(g, meta, total, ni, illum, idx, lvl, tl, dx, dy, b0, group);
 
   for (int p = threadIdx.x; p < group * S; p += blockDim.x) {
     const int m = p / S;
@@ -687,7 +717,7 @@ sample_windows_fused_kernel(const int* __restrict__ planes, LevelMeta meta,
   __syncthreads();
 
   const int n = group * C * S;
-  float* gout = out + (int64_t)b0 * C * S;
+  float* gout = out + b0 * C * S;
   if ((n & 3) == 0 && (reinterpret_cast<uintptr_t>(gout) & 15) == 0) {
     float4* g4 = reinterpret_cast<float4*>(gout);
     for (int k = threadIdx.x; k < n / 4; k += blockDim.x) g4[k] = s_out4[k];
@@ -722,8 +752,8 @@ static int group_threads(int n) {
 struct Launch {
   const int* planes;
   LevelMeta meta;
-  int total;
-  const int* img;
+  int total, ni, illum;
+  const int* idx;
   const int* lvl;
   const float* tl;
   const float* dx;
@@ -748,182 +778,229 @@ static int launch_fused(const Launch& a) {
     }
   }
   kernel<<<a.B / a.group, group_threads(a.group * a.wsize * a.wsize), smem,
-           a.stream>>>(a.planes, a.meta, a.total, a.img, a.lvl, a.tl, a.dx,
-                       a.dy, a.out, a.wsize, a.group);
+           a.stream>>>(a.planes, a.meta, a.total, a.ni, a.illum, a.idx, a.lvl, a.tl,
+                       a.dx, a.dy, a.out, a.wsize, a.group);
   return (int)cudaGetLastError();
 }
 
-// ---- the grouped form's launch plan ----
-
-#define MVS_CACHE 128
+// ---- the window kernel's launch plan ----
 
 // the device's SM count and opt-in shared-memory limit per block, and
-// per kernel instance its opted-in shared memory and its resident
-// blocks per SM, each queried once and cached
+// per kernel instance its opt-in and its resident blocks per SM for a
+// block size and shared memory, each queried once and cached
 struct DeviceInfo { int dev, sms, optin; };
-struct SmemOptIn { const void* fn; int dev, bytes; };
-struct Occupancy { const void* fn; int dev, threads, smem, blocks; };
 
 static std::mutex g_cache_lock;
-static DeviceInfo g_devices[MVS_CACHE];
-static SmemOptIn g_optins[MVS_CACHE];
-static Occupancy g_occupancy[MVS_CACHE];
-static int g_n_devices = 0, g_n_optins = 0, g_n_occupancy = 0;
+static std::map<int, DeviceInfo> g_devices;
+static std::set<std::pair<const void*, int>> g_optins;
+static std::map<std::tuple<const void*, int, int, int>, int> g_occupancy;
 
 static int device_info(DeviceInfo* out) {
   int dev;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   std::lock_guard<std::mutex> hold(g_cache_lock);
-  for (int k = 0; k < g_n_devices; ++k)
-    if (g_devices[k].dev == dev) { *out = g_devices[k]; return 0; }
+  auto it = g_devices.find(dev);
+  if (it != g_devices.end()) { *out = it->second; return 0; }
   DeviceInfo d{dev, 0, 0};
   err = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&d.optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return (int)err;
-  if (g_n_devices < MVS_CACHE) g_devices[g_n_devices++] = d;
+  g_devices[dev] = d;
   *out = d;
   return 0;
 }
 
-// allow `fn` `bytes` of dynamic shared memory (above 48 KB only by
-// opt-in); a size the card refuses returns its error
-static int opt_in_smem(const void* fn, int dev, int bytes) {
-  if (bytes <= MVS_STATIC_SMEM_LIMIT) return 0;
+// allow `fn` the card's whole dynamic shared memory per block (above
+// 48 KB only by opt-in), once per instance and device
+static int opt_in_smem(const void* fn, const DeviceInfo& d) {
   std::lock_guard<std::mutex> hold(g_cache_lock);
-  SmemOptIn* e = nullptr;
-  for (int k = 0; k < g_n_optins; ++k)
-    if (g_optins[k].fn == fn && g_optins[k].dev == dev) e = &g_optins[k];
-  if (e && e->bytes >= bytes) return 0;
+  if (g_optins.count({fn, d.dev})) return 0;
   const cudaError_t err =
-      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, d.optin);
   if (err != cudaSuccess) {
     cudaGetLastError();  // consume it: the next launch's check reads it
     return (int)err;
   }
-  if (e) e->bytes = bytes;
-  else if (g_n_optins < MVS_CACHE) g_optins[g_n_optins++] = SmemOptIn{fn, dev, bytes};
+  g_optins.insert({fn, d.dev});
   return 0;
 }
 
 static int resident_blocks(const void* fn, int dev, int threads, int smem, int* blocks) {
   std::lock_guard<std::mutex> hold(g_cache_lock);
-  for (int k = 0; k < g_n_occupancy; ++k) {
-    const Occupancy& o = g_occupancy[k];
-    if (o.fn == fn && o.dev == dev && o.threads == threads && o.smem == smem) {
-      *blocks = o.blocks;
-      return 0;
-    }
-  }
+  const auto key = std::make_tuple(fn, dev, threads, smem);
+  auto it = g_occupancy.find(key);
+  if (it != g_occupancy.end()) { *blocks = it->second; return 0; }
   const cudaError_t err =
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, threads, (size_t)smem);
   if (err != cudaSuccess) return (int)err;
   if (*blocks < 1) return (int)cudaErrorLaunchOutOfResources;
-  if (g_n_occupancy < MVS_CACHE)
-    g_occupancy[g_n_occupancy++] = Occupancy{fn, dev, threads, smem, *blocks};
+  g_occupancy[key] = *blocks;
   return 0;
 }
 
-struct GroupedPlan {
-  int grid, threads, smem, stages, tma, vec16, blocks_per_sm, sms, stage_floats;
+struct Plan {
+  int tile, grid, threads, smem, stages, tma, vec16, direct, blocks_per_sm, sms,
+      stage_floats;
 };
 
-// The launch of grouped_kernel<C, WS, ABL> for B windows in groups of
-// `group`: two output stages where they fit the card's shared memory,
-// else one; the TMA store where a group's run is a multiple of 16 bytes
-// and the output 16-byte aligned; 16-byte parameter copies where group
-// is a multiple of 4 and the parameter arrays 16-byte aligned; the
-// persistent grid min(groups, SMs x resident blocks per SM).
+// dynamic shared memory of a tile of G windows: `stages` output stages
+// of (G * C * wsize^2 rounded up to 4) floats, two raw parameter buffers
+// (32 B a member each) and the member table (base, width and height:
+// 16 B a member; lattice sums: 16 B a member and lattice step)
+static int tile_smem(int C, int G, int wsize, int stages) {
+  const int stage_floats = (G * C * wsize * wsize + 3) & ~3;
+  return stages * stage_floats * (int)sizeof(float) + 80 * G + 16 * G * wsize;
+}
+
+// The launch of window_kernel<C, WS, ABL> for B windows in tiles of G
+// with `stages` output stages and `threads` per block (0: the multiple
+// of 32 that leaves the fewest idle in a tile's last pass): the TMA
+// store where a whole tile's run is a multiple of 16 bytes and the
+// output 16-byte aligned; 16-byte parameter copies where G is a multiple
+// of 4 and the parameter arrays 16-byte aligned; the persistent grid
+// min(tiles, SMs x resident blocks per SM); the staged prologue.
 template <int C, int WS, int ABL>
-static int plan_grouped(int B, int wsize, int group, bool out16, bool params16,
-                        GroupedPlan* p) {
-  if (group < 2 || group > MVS_MAX_GROUP || B % group != 0 || wsize < 1)
-    return (int)cudaErrorInvalidValue;
-  DeviceInfo d;
-  int err = device_info(&d);
-  if (err) return err;
-  const int n = group * wsize * wsize;
-  const int run = n * C;
+static int plan_tiles(const DeviceInfo& d, int B, int wsize, int G, int stages,
+                      int threads, bool out16, bool params16, Plan* p) {
+  const int run = G * C * wsize * wsize;
+  p->tile = G;
+  p->stages = stages;
   p->stage_floats = (run + 3) & ~3;
-  const int one = p->stage_floats * (int)sizeof(float);
-  // two raw parameter buffers (32 B a member each), the member table
-  // (base, width and height: 16 B a member; lattice sums: 16 B a member
-  // and lattice step)
-  const int fixed = 64 * group + 16 * group + 16 * group * wsize;
-  p->stages = 2 * one + fixed <= d.optin ? 2 : 1;
-  p->smem = p->stages * one + fixed;
-  p->threads = group_threads(n);
-  p->tma = (run * (int)sizeof(float)) % 16 == 0 && out16;
-  p->vec16 = group % 4 == 0 && params16;
+  p->smem = tile_smem(C, G, wsize, stages);
+  if (p->smem > d.optin) return (int)cudaErrorInvalidValue;
+  p->threads = threads > 0 ? threads : group_threads(G * wsize * wsize);
+  p->tma = run % 4 == 0 && out16;
+  p->vec16 = G % 4 == 0 && params16;
+  p->direct = 0;
   p->sms = d.sms;
-  const void* fn = (const void*)grouped_kernel<C, WS, ABL>;
-  err = opt_in_smem(fn, d.dev, p->smem);
+  const void* fn = (const void*)window_kernel<C, WS, ABL>;
+  int err = opt_in_smem(fn, d);
   if (err) return err;
   err = resident_blocks(fn, d.dev, p->threads, p->smem, &p->blocks_per_sm);
   if (err) return err;
-  p->grid = std::min(B / group, d.sms * p->blocks_per_sm);
+  p->grid = (int)std::min(((int64_t)B + G - 1) / G, (int64_t)d.sms * p->blocks_per_sm);
+  return 0;
+}
+
+// The grouped forms: tiles of `group` windows (B a multiple of it, group
+// in [2, MVS_MAX_GROUP]), two output stages where they fit the card's
+// shared memory, else one (a size the card refuses returns its error).
+template <int C, int WS, int ABL>
+static int plan_grouped(int B, int wsize, int group, bool out16, bool params16, Plan* p) {
+  if (group < 2 || group > MVS_MAX_GROUP || B % group != 0 || wsize < 1)
+    return (int)cudaErrorInvalidValue;
+  DeviceInfo d;
+  const int err = device_info(&d);
+  if (err) return err;
+  const int stages = tile_smem(C, group, wsize, 2) <= d.optin ? 2 : 1;
+  return plan_tiles<C, WS, ABL>(d, B, wsize, group, stages, 0, out16, params16, p);
+}
+
+// a measurement override of the ungrouped plan
+// (mvs_sample_windows_tile_override): tile, output stages and prologue;
+// 0 (-1 for the prologue) leaves the plan's own choice
+static std::atomic<int> g_tile_override{0}, g_stages_override{0}, g_direct_override{-1};
+
+// the ungrouped plan's largest tile, in windows and in samples (64
+// windows of 7 x 7)
+#define MVS_MAX_TILE 64
+#define MVS_MAX_TILE_SAMPLES 3136
+
+// The ungrouped forms (tiles of independent windows): MVS_THREADS per
+// block, one output stage and the direct prologue, and the smallest tile
+// (a multiple of 4) whose tiles all fit the card's resident blocks at
+// once, so every block takes one tile; a batch too large for that takes
+// the largest tile (64 windows, fewer at windows over 7 x 7), and each
+// block walks several. Measured on an H100 (PERF.md §6, chip_smoke.py's
+// tile_times): at 24,576 windows of 7 x 7 the one-tile-per-block choice
+// (32 RGB, 24 luma) is among the fastest tiles; at 786,432 windows the
+// largest tiles with one stage are fastest (a second stage costs
+// resident blocks and gains nothing there); the direct prologue is
+// level with the staged one or faster. Never refuses a window size: a
+// tile of 4 fits the card at every size up to 15 x 15.
+template <int C, int WS, int ABL>
+static int plan_ungrouped(int B, int wsize, bool out16, bool params16, Plan* p) {
+  if (B < 1 || wsize < 1) return (int)cudaErrorInvalidValue;
+  DeviceInfo d;
+  int err = device_info(&d);
+  if (err) return err;
+  const int tile = g_tile_override.load(), stages = g_stages_override.load();
+  const int direct = g_direct_override.load();
+  const int largest =
+      std::max(4, std::min(MVS_MAX_TILE, MVS_MAX_TILE_SAMPLES / (wsize * wsize)) & ~3);
+  auto plan = [&](int G, Plan* q) {
+    return plan_tiles<C, WS, ABL>(d, B, wsize, G, stages > 0 ? stages : 1, MVS_THREADS,
+                                  out16, params16, q);
+  };
+  auto fits = [&](int G, const Plan& q) { return ((int64_t)B + G - 1) / G <= q.grid; };
+  // the largest tile first: a batch whose largest tiles do not all fit
+  // at once takes it, and the search for a smaller one is skipped
+  err = plan(tile > 0 ? tile : largest, p);
+  if (err) return err;
+  if (tile <= 0 && fits(largest, *p)) {
+    for (int G = 4; G < largest; G += 4) {
+      Plan q;
+      err = plan(G, &q);
+      if (err) return err;
+      if (fits(G, q)) {
+        *p = q;
+        break;
+      }
+    }
+  }
+  p->direct = direct >= 0 ? direct : 1;
   return 0;
 }
 
 static bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 template <int C, int WS, int ABL>
-static int launch_grouped_ws(const Launch& a) {
-  GroupedPlan p;
-  const bool params16 = aligned16(a.img) && aligned16(a.lvl) && aligned16(a.tl) &&
+static int launch_windows_ws(const Launch& a, bool grouped) {
+  Plan p;
+  const bool params16 = aligned16(a.idx) && aligned16(a.lvl) && aligned16(a.tl) &&
                         aligned16(a.dx) && aligned16(a.dy);
-  const int err = plan_grouped<C, WS, ABL>(a.B, a.wsize, a.group, aligned16(a.out),
-                                           params16, &p);
+  const bool out16 = aligned16(a.out);
+  const int err =
+      grouped ? plan_grouped<C, WS, ABL>(a.B, a.wsize, a.group, out16, params16, &p)
+              : plan_ungrouped<C, WS, ABL>(a.B, a.wsize, out16, params16, &p);
   if (err) return err;
-  grouped_kernel<C, WS, ABL><<<p.grid, p.threads, p.smem, a.stream>>>(
-      a.planes, a.meta, a.total, a.img, a.lvl, a.tl, a.dx, a.dy, a.out,
-      a.B / a.group, a.wsize, a.group, p.stage_floats, p.stages, p.tma, p.vec16);
+  window_kernel<C, WS, ABL><<<p.grid, p.threads, p.smem, a.stream>>>(
+      a.planes, a.meta, a.total, a.ni, a.illum, a.idx, a.lvl, a.tl, a.dx, a.dy, a.out,
+      a.B, a.wsize, p.tile, p.stage_floats, p.stages, p.tma, p.vec16, p.direct);
   return (int)cudaGetLastError();
 }
 
 // WS = 7 (MVSConfig.wsize's default) is compiled for its size; every
 // other size runs the same code with wsize read at run time
 template <int C, int ABL>
-static int launch_grouped(const Launch& a) {
-  return a.wsize == 7 ? launch_grouped_ws<C, 7, ABL>(a) : launch_grouped_ws<C, 0, ABL>(a);
+static int launch_windows(const Launch& a, bool grouped) {
+  return a.wsize == 7 ? launch_windows_ws<C, 7, ABL>(a, grouped)
+                      : launch_windows_ws<C, 0, ABL>(a, grouped);
 }
 
-template <int C>
-static int plan_grouped_ws(int B, int wsize, int group, GroupedPlan* p) {
-  return wsize == 7 ? plan_grouped<C, 7, ABL_NONE>(B, wsize, group, true, true, p)
-                    : plan_grouped<C, 0, ABL_NONE>(B, wsize, group, true, true, p);
+static bool is_luma(int form) {
+  return form == FORM_LUMA_UNGROUPED || form == FORM_LUMA_GROUPED ||
+         form == FORM_LUMA_FUSED;
 }
 
 template <int ABL>
 static int launch_form(int form, const Launch& a) {
-  if (form == FORM_UNGROUPED || form == FORM_LUMA_UNGROUPED) {
-    const int64_t n = (int64_t)a.B * a.wsize * a.wsize;
-    const int64_t blocks = (n + MVS_THREADS - 1) / MVS_THREADS;
-    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    if (form == FORM_UNGROUPED)
-      sample_windows_ungrouped_kernel<ABL><<<(unsigned)blocks, MVS_THREADS, 0,
-                                             a.stream>>>(
-          a.planes, a.meta, a.total, a.img, a.lvl, a.tl, a.dx, a.dy, a.out,
-          a.B, a.wsize);
-    else
-      sample_windows_luma_ungrouped_kernel<ABL><<<(unsigned)blocks,
-                                                  MVS_THREADS, 0, a.stream>>>(
-          a.planes, a.meta, a.total, a.img, a.lvl, a.tl, a.dx, a.dy, a.out,
-          a.B, a.wsize);
-    return (int)cudaGetLastError();
-  }
-  if (a.group < 2 || a.group > MVS_MAX_GROUP || a.B % a.group != 0)
-    return (int)cudaErrorInvalidValue;
   switch (form) {
+    case FORM_UNGROUPED:
+      return launch_windows<3, ABL>(a, false);
     case FORM_GROUPED:
-      return launch_grouped<3, ABL>(a);
+      return launch_windows<3, ABL>(a, true);
+    case FORM_LUMA_UNGROUPED:
+      return launch_windows<1, ABL>(a, false);
     case FORM_LUMA_GROUPED:
-      return launch_grouped<1, ABL>(a);
+      return launch_windows<1, ABL>(a, true);
     case FORM_FUSED:
-      return launch_fused<3, ABL>(a);
     case FORM_LUMA_FUSED:
-      return launch_fused<1, ABL>(a);
+      if (a.group < 2 || a.group > MVS_MAX_GROUP || a.B % a.group != 0)
+        return (int)cudaErrorInvalidValue;
+      return form == FORM_FUSED ? launch_fused<3, ABL>(a) : launch_fused<1, ABL>(a);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -931,20 +1008,26 @@ static int launch_form(int form, const Launch& a) {
 
 // Checks the batch and dispatches the launch form to its ablation's
 // kernel. Pointers are device pointers except the three level-metadata
-// arrays, which are host arrays of n_levels ints. Returns
-// cudaGetLastError() after the launch (0 for an empty batch).
+// arrays, which are host arrays of n_levels ints. Window b reads plane
+// row idx[b] * ni + illum. A batch whose output passes INT_MAX floats is
+// refused. Returns cudaGetLastError() after the launch (0 for an empty
+// batch).
 static int launch(int form, const void* planes, int total, const int* lvl_off,
-                  const int* lvl_w, const int* lvl_h, int n_levels,
-                  const void* img, const void* lvl, const void* tl,
-                  const void* dx, const void* dy, void* out, int B, int wsize,
-                  int group, int ablate, void* stream) {
+                  const int* lvl_w, const int* lvl_h, int n_levels, int ni, int illum,
+                  const void* idx, const void* lvl, const void* tl, const void* dx,
+                  const void* dy, void* out, int B, int wsize, int group, int ablate,
+                  void* stream) {
   Launch a;
   int err = make_meta(&a.meta, lvl_off, lvl_w, lvl_h, n_levels);
   if (err) return err;
   if (B <= 0) return 0;
+  if (wsize < 1 || (int64_t)B * (is_luma(form) ? 1 : 3) * wsize * wsize > INT_MAX)
+    return (int)cudaErrorInvalidValue;
   a.planes = (const int*)planes;
   a.total = total;
-  a.img = (const int*)img;
+  a.ni = ni;
+  a.illum = illum;
+  a.idx = (const int*)idx;
   a.lvl = (const int*)lvl;
   a.tl = (const float*)tl;
   a.dx = (const float*)dx;
@@ -965,14 +1048,17 @@ static int launch(int form, const void* planes, int total, const int* lvl_off,
   }
 }
 
-#define MVS_COMMON_PARAMS                                                   \
-  const void *planes, int total, const int *lvl_off, const int *lvl_w,      \
-      const int *lvl_h, int n_levels, const void *img, const void *lvl,     \
-      const void *tl, const void *dx, const void *dy, void *out, int B,     \
-      int wsize
-#define MVS_COMMON_ARGS                                                     \
-  planes, total, lvl_off, lvl_w, lvl_h, n_levels, img, lvl, tl, dx, dy,     \
-      out, B, wsize
+#define MVS_COMMON_PARAMS                                                      \
+  const void *planes, int total, const int *lvl_off, const int *lvl_w,         \
+      const int *lvl_h, int n_levels, int ni, int illum, const void *idx,      \
+      const void *lvl, const void *tl, const void *dx, const void *dy,         \
+      void *out, int B, int wsize
+#define MVS_COMMON_ARGS                                                        \
+  planes, total, lvl_off, lvl_w, lvl_h, n_levels, ni, illum, idx, lvl, tl, dx, \
+      dy, out, B, wsize
+
+// Every entry point: planes is the [n * ni, total] plane buffer (packed
+// RGB, or luma quads); window b samples row idx[b] * ni + illum.
 
 // Ungrouped launch (the TPU kernel's group=1 form), RGB rows [B, 3 * S].
 extern "C" int mvs_sample_windows_ungrouped(MVS_COMMON_PARAMS, int ablate,
@@ -987,8 +1073,8 @@ extern "C" int mvs_sample_windows_grouped(MVS_COMMON_PARAMS, int group,
   return launch(FORM_GROUPED, MVS_COMMON_ARGS, group, ablate, stream);
 }
 
-// Ungrouped luma launch (K3, group=1): planes is the [n * I, total]
-// luma-quad buffer; out is [B, wsize^2].
+// Ungrouped luma launch (K3, group=1): planes is the luma-quad buffer;
+// out is [B, wsize^2].
 extern "C" int mvs_sample_windows_luma_ungrouped(MVS_COMMON_PARAMS, int ablate,
                                                  void* stream) {
   return launch(FORM_LUMA_UNGROUPED, MVS_COMMON_ARGS, 1, ablate, stream);
@@ -998,24 +1084,6 @@ extern "C" int mvs_sample_windows_luma_ungrouped(MVS_COMMON_PARAMS, int ablate,
 extern "C" int mvs_sample_windows_luma_grouped(MVS_COMMON_PARAMS, int group,
                                                int ablate, void* stream) {
   return launch(FORM_LUMA_GROUPED, MVS_COMMON_ARGS, group, ablate, stream);
-}
-
-// The grouped launch's plan for B windows of wsize in groups of `group`
-// (luma or RGB) on the current device, with the wrapper's 16-byte
-// aligned arrays: writes grid, threads, dynamic shared memory bytes,
-// output stages, TMA store (0/1), 16-byte parameter copies (0/1),
-// resident blocks per SM, SM count and floats per stage into
-// plan[0..8]. Returns the error the launch would return, else 0.
-extern "C" int mvs_sample_windows_grouped_plan(int luma, int B, int wsize, int group,
-                                               int* plan) {
-  GroupedPlan p;
-  const int err = luma ? plan_grouped_ws<1>(B, wsize, group, &p)
-                       : plan_grouped_ws<3>(B, wsize, group, &p);
-  if (err) return err;
-  const int v[9] = {p.grid, p.threads, p.smem, p.stages, p.tma, p.vec16,
-                    p.blocks_per_sm, p.sms, p.stage_floats};
-  for (int k = 0; k < 9; ++k) plan[k] = v[k];
-  return 0;
 }
 
 // Fused RGB launch (K4, fused=True): the grouped form's output, one
@@ -1029,4 +1097,52 @@ extern "C" int mvs_sample_windows_fused(MVS_COMMON_PARAMS, int group,
 extern "C" int mvs_sample_windows_luma_fused(MVS_COMMON_PARAMS, int group,
                                              int ablate, void* stream) {
   return launch(FORM_LUMA_FUSED, MVS_COMMON_ARGS, group, ablate, stream);
+}
+
+// The window kernel's plan for B windows of wsize on the current device,
+// with the wrapper's 16-byte aligned arrays, for `form` (FORM_UNGROUPED,
+// FORM_GROUPED, FORM_LUMA_UNGROUPED or FORM_LUMA_GROUPED; `group` for the
+// grouped forms): writes tile, grid, threads, dynamic shared memory
+// bytes, output stages, TMA store (0/1), 16-byte parameter copies (0/1),
+// direct prologue (0/1), resident blocks per SM, SM count and floats per
+// stage into plan[0..10]. Returns the error the launch would return,
+// else 0.
+extern "C" int mvs_sample_windows_plan(int form, int B, int wsize, int group, int* plan) {
+  Plan p;
+  int err;
+  const bool ws7 = wsize == 7;
+  switch (form) {
+    case FORM_UNGROUPED:
+      err = ws7 ? plan_ungrouped<3, 7, ABL_NONE>(B, wsize, true, true, &p)
+                : plan_ungrouped<3, 0, ABL_NONE>(B, wsize, true, true, &p);
+      break;
+    case FORM_GROUPED:
+      err = ws7 ? plan_grouped<3, 7, ABL_NONE>(B, wsize, group, true, true, &p)
+                : plan_grouped<3, 0, ABL_NONE>(B, wsize, group, true, true, &p);
+      break;
+    case FORM_LUMA_UNGROUPED:
+      err = ws7 ? plan_ungrouped<1, 7, ABL_NONE>(B, wsize, true, true, &p)
+                : plan_ungrouped<1, 0, ABL_NONE>(B, wsize, true, true, &p);
+      break;
+    case FORM_LUMA_GROUPED:
+      err = ws7 ? plan_grouped<1, 7, ABL_NONE>(B, wsize, group, true, true, &p)
+                : plan_grouped<1, 0, ABL_NONE>(B, wsize, group, true, true, &p);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  if (err) return err;
+  const int v[11] = {p.tile, p.grid, p.threads, p.smem, p.stages, p.tma, p.vec16,
+                     p.direct, p.blocks_per_sm, p.sms, p.stage_floats};
+  for (int k = 0; k < 11; ++k) plan[k] = v[k];
+  return 0;
+}
+
+// Sets the measurement override of the ungrouped plan: tile (windows,
+// at least 1), output stages (1 or 2) and prologue (1 direct, 0 staged);
+// 0, 0, -1 restore the plan's own choices.
+extern "C" void mvs_sample_windows_tile_override(int tile, int stages, int direct) {
+  g_tile_override = tile;
+  g_stages_override = stages;
+  g_direct_override = direct;
 }

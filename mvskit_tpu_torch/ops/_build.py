@@ -12,7 +12,7 @@ nvcc runs with ``-Xptxas -v``: ptxas reports each kernel instance's
 registers, shared memory, stack and spills, and a successful build keeps
 that report as ``ptxas.txt`` beside the library. ``ptxas_report()``
 reads it back per instance, under names such as
-``grouped_kernel<3, 7, 0>`` (the template arguments of the mangled name).
+``window_kernel<3, 7, 0>`` (the template arguments of the mangled name).
 """
 
 from __future__ import annotations
@@ -92,7 +92,7 @@ def build() -> Path:
 
 
 def demangle(name: str) -> str:
-    """`_Z14grouped_kernelILi3ELi7ELi0EEv...` -> `grouped_kernel<3, 7, 0>`:
+    """`_Z13window_kernelILi3ELi7ELi0EEv...` -> `window_kernel<3, 7, 0>`:
     the kernel's name and its integer template arguments (the only kind
     the library's kernels take); other names come back unchanged."""
     m = re.match(r"_Z(\d+)", name)
@@ -151,7 +151,9 @@ def load_library() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             ints = ctypes.POINTER(ctypes.c_int)
-            common = [ptr, i32, ints, ints, ints, i32,
+            # planes, total, level offsets, widths, heights, n_levels, ni,
+            # illum, idx, lvl, tl, dx, dy, out, B, wsize
+            common = [ptr, i32, ints, ints, ints, i32, i32, i32,
                       ptr, ptr, ptr, ptr, ptr, ptr, i32, i32]
             for chans in ("", "luma_"):
                 # ungrouped: (..., ablate, stream); grouped and fused:
@@ -161,8 +163,11 @@ def load_library() -> ctypes.CDLL:
                 for form in ("grouped", "fused"):
                     fn = getattr(lib, f"mvs_sample_windows_{chans}{form}")
                     fn.argtypes, fn.restype = common + [i32, i32, ptr], i32
-            # (luma, B, wsize, group, int plan[9])
-            lib.mvs_sample_windows_grouped_plan.argtypes = [i32] * 4 + [ints]
-            lib.mvs_sample_windows_grouped_plan.restype = i32
+            # (form, B, wsize, group, int plan[11])
+            lib.mvs_sample_windows_plan.argtypes = [i32] * 4 + [ints]
+            lib.mvs_sample_windows_plan.restype = i32
+            # (tile, stages, direct)
+            lib.mvs_sample_windows_tile_override.argtypes = [i32] * 3
+            lib.mvs_sample_windows_tile_override.restype = None
             _lib = lib
         return _lib

@@ -17,14 +17,19 @@ same arithmetic on the gather path. ``ablate`` names one of the
 measurement switches of the JAX kernel (``ABLATIONS``), each of which
 drops one stage of the work and has a defined output that its plain
 version repeats. ``LAUNCHES`` counts kernel launches per form, and
-ablated launches per switch. ``grouped_plan`` reports how the grouped
-form launches on the current card (persistent grid, threads, shared
-memory, output stages, store path).
+ablated launches per switch; ``WINDOWS`` keeps the batch size of each
+of those launches. ``grouped_plan`` and ``ungrouped_plan`` report how
+the persistent window kernel launches a batch on the current card (tile,
+grid, threads, shared memory, output stages, store path);
+``tile_override`` forces the ungrouped plan's tile, stages or prologue
+for a measurement.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 
 import torch
 
@@ -44,9 +49,14 @@ LAUNCHES = {"ungrouped": 0, "grouped": 0, "luma_ungrouped": 0,
 _W_BLK = 128
 
 
+# the batch size (windows) of every launch counted in LAUNCHES, per key
+WINDOWS = {k: [] for k in LAUNCHES}
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        WINDOWS[k].clear()
 
 
 def lattice(tl, dx, dy, wsize: int, origin: bool = False):
@@ -202,6 +212,14 @@ def launch_form(B: int, group: int, luma: bool, fused: bool) -> str:
     return ("luma_" if luma else "") + form
 
 
+@functools.lru_cache(maxsize=64)
+def _level_arrays(offsets, widths, heights):
+    """The kernel's host-side level metadata for one scene layout (the
+    static `offsets` / `widths` / `heights` tuples), built once."""
+    ints = ctypes.c_int * len(offsets)
+    return ints(*offsets), ints(*widths), ints(*heights), len(offsets)
+
+
 def _launch(scene: Scene, idx, lvl, tl, dx, dy, wsize: int, illum: int,
             group: int, luma: bool, fused: bool, ablate: str):
     from . import _build
@@ -211,15 +229,12 @@ def _launch(scene: Scene, idx, lvl, tl, dx, dy, wsize: int, illum: int,
     B = idx.shape[0]
     S = wsize * wsize
     n, ni, total = planes.shape
-    img = (idx * ni + illum).contiguous()
     out = torch.empty((B, S if luma else 3 * S), dtype=torch.float32,
                       device=tl.device)
-    L = len(scene.offsets)
-    ints = ctypes.c_int * L
     args = (
         ctypes.c_void_p(planes.data_ptr()), total,
-        ints(*scene.offsets), ints(*scene.widths), ints(*scene.heights), L,
-        ctypes.c_void_p(img.data_ptr()), ctypes.c_void_p(lvl.data_ptr()),
+        *_level_arrays(scene.offsets, scene.widths, scene.heights), ni, illum,
+        ctypes.c_void_p(idx.data_ptr()), ctypes.c_void_p(lvl.data_ptr()),
         ctypes.c_void_p(tl.data_ptr()), ctypes.c_void_p(dx.data_ptr()),
         ctypes.c_void_p(dy.data_ptr()), ctypes.c_void_p(out.data_ptr()),
         B, wsize,
@@ -235,35 +250,69 @@ def _launch(scene: Scene, idx, lvl, tl, dx, dy, wsize: int, illum: int,
     if err != 0:
         raise RuntimeError(f"sample_windows {form} (ablate {ablate!r}) launch "
                            f"failed: CUDA error {err}")
-    LAUNCHES[f"ablate_{ablate}" if ablate else form] += 1
+    key = f"ablate_{ablate}" if ablate else form
+    LAUNCHES[key] += 1
+    WINDOWS[key].append(B)
     return out
 
 
-GROUPED_PLAN_KEYS = ("grid", "threads", "smem_bytes", "stages", "tma_store",
-                     "param_copy16", "blocks_per_sm", "sms", "stage_floats")
+# csrc/sample_windows.cu's Form enum values of the window kernel's forms
+_FORMS = {"ungrouped": 0, "grouped": 1, "luma_ungrouped": 2, "luma_grouped": 3}
+PLAN_KEYS = ("tile", "grid", "threads", "smem_bytes", "stages", "tma_store",
+             "param_copy16", "direct_prologue", "blocks_per_sm", "sms", "stage_floats")
+
+
+def _plan(form: str, B: int, wsize: int, group: int) -> dict:
+    from . import _build
+
+    lib = _build.load_library()
+    plan = (ctypes.c_int * len(PLAN_KEYS))()
+    err = lib.mvs_sample_windows_plan(_FORMS[form], B, wsize, group, plan)
+    if err != 0:
+        raise RuntimeError(f"sample_windows {form} plan (B {B}, wsize {wsize}, group "
+                           f"{group}) failed: CUDA error {err}")
+    rec = dict(zip(PLAN_KEYS, plan))
+    for k in ("tma_store", "param_copy16", "direct_prologue"):
+        rec[k] = bool(rec[k])
+    return rec
 
 
 def grouped_plan(B: int, wsize: int, group: int, luma: bool = False) -> dict:
     """How the grouped form launches B windows of wsize in groups of
     `group` on the current card (the wrapper's 16-byte aligned arrays):
-    the persistent grid, threads per block, dynamic shared memory, output
-    stages (2, or 1 where two exceed the card's shared memory), whether
-    the group's run leaves by TMA bulk store, whether parameters are
-    copied in 16-byte chunks, resident blocks per SM and the SM count.
-    Raises where the launch would fail (a shared-memory size the card
-    refuses). Needs the card."""
+    the tile (= group), the persistent grid, threads per block, dynamic
+    shared memory, output stages (2, or 1 where two exceed the card's
+    shared memory), whether a tile's run leaves by TMA bulk store,
+    whether parameters are copied in 16-byte chunks, whether a block's
+    first tile is read straight from global memory, resident blocks per
+    SM and the SM count. Raises where the launch would fail (a
+    shared-memory size the card refuses). Needs the card."""
+    return _plan("luma_grouped" if luma else "grouped", B, wsize, group)
+
+
+def ungrouped_plan(B: int, wsize: int, luma: bool = False) -> dict:
+    """How the ungrouped form launches B windows of wsize on the current
+    card: the same record as ``grouped_plan``, with the tile of
+    consecutive windows the plan chose for B (the smallest whose tiles
+    all fit the card's resident blocks at once, else the largest, 64 at
+    7 x 7), one output stage and the direct prologue. Needs the card."""
+    return _plan("luma_ungrouped" if luma else "ungrouped", B, wsize, 1)
+
+
+@contextlib.contextmanager
+def tile_override(tile: int = 0, stages: int = 0, direct: bool | None = None):
+    """Within the block, the ungrouped plan takes `tile` windows a tile,
+    `stages` output stages (1 or 2) and the direct (True) or staged
+    (False) prologue; 0 / None keep the plan's own choice. A measurement
+    switch of the current process. Needs the card."""
     from . import _build
 
     lib = _build.load_library()
-    plan = (ctypes.c_int * len(GROUPED_PLAN_KEYS))()
-    err = lib.mvs_sample_windows_grouped_plan(int(luma), B, wsize, group, plan)
-    if err != 0:
-        raise RuntimeError(f"sample_windows grouped plan (B {B}, wsize {wsize}, group "
-                           f"{group}, luma {luma}) failed: CUDA error {err}")
-    rec = dict(zip(GROUPED_PLAN_KEYS, plan))
-    for k in ("tma_store", "param_copy16"):
-        rec[k] = bool(rec[k])
-    return rec
+    lib.mvs_sample_windows_tile_override(tile, stages, -1 if direct is None else int(direct))
+    try:
+        yield
+    finally:
+        lib.mvs_sample_windows_tile_override(0, 0, -1)
 
 
 def sample_windows(scene: Scene, idx, lvl, tl, dx, dy, wsize: int,

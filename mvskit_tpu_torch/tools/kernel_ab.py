@@ -9,12 +9,15 @@ PARENT_DIR's `chip_smoke.py` and of this checkout's in the order
 parent, change, change, parent, each in its own process started in its
 own directory, so each builds and loads its own kernels: `kernels`
 (default) is `chip_smoke.kernel_phase`, compared by each kernel's device
-ms; `paths` is `chip_smoke.paths_phase` (RGB, luma, short ungrouped
-luma, 3-illumination runs), compared by each path's propagation
-seconds. It prints the card (name and power limit), then per record
-each run's number and, per side, the best of its two runs, and ends
-with one JSON line of that summary. FILE (default
-`build/<phase>_ab.json`) receives every run's full records.
+ms, and where a record has them by the device ms of the ungrouped
+launch on the same windows (`ungrouped_ms_same_windows`, K1 beside K2
+and K3u beside K3g) and on the gauntlet's windows (`gauntlet_windows`);
+`paths` is `chip_smoke.paths_phase` (RGB, luma, short ungrouped luma,
+3-illumination runs), compared by each path's propagation seconds. It
+prints the card (name and power limit), then per record each run's
+numbers and, per side, the best of its two runs, and ends with one JSON
+line of that summary. FILE (default `build/<phase>_ab.json`) receives
+every run's full records.
 """
 
 from __future__ import annotations
@@ -31,7 +34,19 @@ REPO = Path(__file__).resolve().parents[2]
 ORDER = ("parent", "change", "change", "parent")
 MARK = "KERNEL_AB "
 CALL = {"kernels": "cs.kernel_phase(dev)", "paths": "cs.paths_phase(dev, work)"}
-METRIC = {"kernels": "ms", "paths": "propagate_s"}
+
+
+def metrics(phase: str, record: dict) -> dict:
+    """The compared numbers of one record: `metric` as named in the
+    summary -> value."""
+    if phase == "paths":
+        return {"propagate_s": record["propagate_s"]}
+    out = {"ms": record["ms"]}
+    if "ungrouped_ms_same_windows" in record:
+        out["ungrouped_ms_same_windows"] = record["ungrouped_ms_same_windows"]
+    if "gauntlet_windows" in record:
+        out["gauntlet_ms"] = record["gauntlet_windows"]["ms"]
+    return out
 
 
 def snippet(phase: str) -> str:
@@ -75,7 +90,7 @@ def main(argv=None) -> int:
     ap.add_argument("--out", type=Path, help="default build/<phase>_ab.json")
     ap.add_argument("--timeout", type=float, default=900.0, help="seconds per run")
     args = ap.parse_args(argv)
-    phase, metric = args.phase, METRIC[args.phase]
+    phase = args.phase
     out = args.out or REPO / "build" / f"{phase}_ab.json"
     sides = {"parent": args.parent.resolve(), "change": REPO}
     card = card_line()
@@ -85,24 +100,27 @@ def main(argv=None) -> int:
         t0 = time.time()
         records = run_phase(sides[side], phase, args.timeout)
         runs.append({"side": side, "seconds": time.time() - t0, "records": records})
-        print(f"[ab] {side}: " + json.dumps({k: r[metric] for k, r in records.items()}),
-              flush=True)
-    summary = {"card": card, "order": list(ORDER), "phase": phase, "metric": metric,
-               "records": {}}
-    for name in runs[0]["records"]:
-        vals = {side: [r["records"][name][metric] for r in runs
-                       if r["side"] == side and name in r["records"]] for side in sides}
-        if not (vals["parent"] and vals["change"]):
-            continue
-        best = {side: min(v) for side, v in vals.items()}
-        change = [r["records"][name] for r in runs if r["side"] == "change"][0]
-        entry = {"parent_runs": vals["parent"], "change_runs": vals["change"],
-                 "parent_best": best["parent"], "change_best": best["change"],
-                 "change_over_parent": best["change"] / best["parent"]}
-        if "bound_ms" in change:
-            entry.update(bound_ms=change["bound_ms"],
-                         change_bound_share=change["bound_ms"] / best["change"])
-        summary["records"][name] = entry
+        print(f"[ab] {side}: " + json.dumps({k: metrics(phase, r)
+                                             for k, r in records.items()}), flush=True)
+    summary = {"card": card, "order": list(ORDER), "phase": phase, "records": {}}
+    for name, first in runs[0]["records"].items():
+        for metric in metrics(phase, first):
+            vals = {side: [metrics(phase, r["records"][name]).get(metric) for r in runs
+                           if r["side"] == side and name in r["records"]]
+                    for side in sides}
+            vals = {side: [v for v in vs if v is not None] for side, vs in vals.items()}
+            if not (vals["parent"] and vals["change"]):
+                continue
+            best = {side: min(v) for side, v in vals.items()}
+            entry = {"parent_runs": vals["parent"], "change_runs": vals["change"],
+                     "parent_best": best["parent"], "change_best": best["change"],
+                     "change_over_parent": best["change"] / best["parent"]}
+            change = [r["records"][name] for r in runs if r["side"] == "change"][0]
+            if metric == "ms" and "bound_ms" in change:
+                entry.update(bound_ms=change["bound_ms"],
+                             change_bound_share=change["bound_ms"] / best["change"])
+            summary["records"][name if metric in ("ms", "propagate_s")
+                               else f"{name}.{metric}"] = entry
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps({"summary": summary, "runs": runs}, indent=1))
     print(json.dumps(summary), flush=True)

@@ -189,3 +189,32 @@ def test_main_prints_its_record(capsys, monkeypatch):
     assert (rec["group"], rec["fused"], rec["ablate"]) == (32, True, "nomm")
     assert rec["rgb"]["form"] == "fused" and rec["luma"]["form"] == "luma_fused"
     assert not any(line.startswith("KERNEL_") for line in out)  # no device time on the CPU
+
+
+def test_kernel_ab_compares_nested_same_window_times():
+    """tools/kernel_ab.py compares each kernel record's device ms and,
+    where the record holds them, the ungrouped launch on the same
+    windows and the gauntlet's windows; a paths record by its
+    propagation seconds."""
+    from mvskit_tpu_torch.tools import kernel_ab
+
+    rec = {"ms": 0.28, "ungrouped_ms_same_windows": 0.37,
+           "gauntlet_windows": {"ms": 0.02, "windows": 24576}}
+    assert kernel_ab.metrics("kernels", rec) == {
+        "ms": 0.28, "ungrouped_ms_same_windows": 0.37, "gauntlet_ms": 0.02}
+    assert kernel_ab.metrics("kernels", {"ms": 0.1, "bound_ms": 0.05}) == {"ms": 0.1}
+    assert kernel_ab.metrics("paths", {"propagate_s": 12.5, "wall_s": 20.0}) == {
+        "propagate_s": 12.5}
+
+
+def test_level_arrays_are_built_once_per_scene_layout(windows):
+    """The launch's host-side level metadata (ctypes arrays of the
+    scene's static level offsets, widths and heights) is built once per
+    layout and reused by every later call."""
+    scene = windows[1]
+    key = (scene.offsets, scene.widths, scene.heights)
+    first = cuda_ncc._level_arrays(*key)
+    assert cuda_ncc._level_arrays(*key) is first
+    off, w, h, n = first
+    assert n == len(scene.offsets)
+    assert [list(off), list(w), list(h)] == [list(k) for k in key]

@@ -5,13 +5,14 @@ conftest:
 
     python -m pytest --noconftest -q -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerances: the RGB kernel equals its plain version (same arithmetic,
-each operation rounded alone) — checked to 1e-3 on the 0-255 scale, the
-bound chip_smoke.py also states; the luma kernel equals its plain
-version bit for bit; grouped (K2, K3g: the persistent kernel, at the
-compiled window size 7 and the run-time size instance) and fused (K4)
-equal ungrouped bit for bit; every ablation switch (K5) in every launch
-form equals its plain version bit for bit.
+Tolerances: every launch form equals its plain version bit for bit
+(the same arithmetic, each operation rounded alone), as chip_smoke.py
+requires: ungrouped (K1 RGB, K3u luma) and grouped (K2, K3g), all four
+the persistent window kernel, at the compiled window size 7 and the
+run-time size instance, at every batch size (a ragged last tile
+included) and illumination; fused (K4) equals ungrouped bit for bit;
+every ablation switch (K5) in every launch form equals its plain version
+bit for bit.
 The pipeline on the card against the same pipeline on the CPU, fed the
 same random numbers: alive counts within 3 % (reductions sum in another
 order on the card, which can flip a near-tie accept/reject)."""
@@ -76,7 +77,7 @@ def test_kernel_forms_match_plain(card):
     plain = cuda_ncc.sample_windows_plain(scene, *args, WSIZE)
     assert cuda_ncc.LAUNCHES == dict(_no_launches(), ungrouped=2, grouped=1)
     assert fit.all()
-    assert (ung - plain).abs().max().item() <= 1e-3
+    assert torch.equal(_bits(ung), _bits(plain))
     assert torch.equal(ung.view(torch.int32), grp.view(torch.int32))
     assert torch.equal(odd.view(torch.int32), ung[:-1].view(torch.int32))
 
@@ -256,11 +257,161 @@ def test_kernels_read_the_asked_illumination(card):
                     scene, *args, WSIZE, illum=il, group=group, luma=luma)
         torch.cuda.synchronize()
         p2 = plain_fn(scene, *args, WSIZE, illum=2)
-        assert (outs[2, 1] - p2).abs().max().item() <= (0.0 if luma else 1e-3)
+        assert torch.equal(_bits(outs[2, 1]), _bits(p2))
         assert torch.equal(_bits(outs[2, 32]), _bits(outs[2, 1]))
         assert (outs[2, 1] - outs[0, 1]).abs().max().item() > 1.0
     with pytest.raises(ValueError):
         cuda_ncc.sample_windows(scene, *args, WSIZE, illum=3)
+
+
+def _plain_fn(luma):
+    from mvskit_tpu_torch.ops import cuda_ncc
+
+    return cuda_ncc.sample_windows_luma_plain if luma else cuda_ncc.sample_windows_plain
+
+
+@pytest.mark.parametrize("luma", [False, True])
+@pytest.mark.parametrize("wsize", [5, 7, 9, 15])
+def test_ungrouped_form_every_batch_bitwise(card, wsize, luma):
+    """K1 (RGB) / K3u (luma), the persistent window kernel over tiles of
+    independent windows, at B = 1, 3, the plan's tile - 1, tile and
+    tile + 1 and the gauntlet's 24,576 windows: bit-equal to the plain
+    version and to the grouped launch over the same windows (the first
+    B of a batch of whole groups of 32). Every plan stays within the
+    card's limits, and at least one batch leaves a ragged last tile."""
+    from mvskit_tpu_torch.ops import cuda_ncc
+    from mvskit_tpu_torch.utils import synthetic
+
+    _, _, scene = synthetic.plane_scene(n_views=6, width=160, height=120, device=card)
+    args = _windows(scene, n_patch=256, wsize=wsize)  # 256 x 32 x 3 = 24,576
+    full = args[0].shape[0]
+    grp, _ = cuda_ncc.sample_windows(scene, *args, wsize, group=32, luma=luma)
+    tile = cuda_ncc.ungrouped_plan(full, wsize, luma)["tile"]
+    ragged = 0
+    cuda_ncc.reset_launches()
+    for B in sorted({1, 3, tile - 1, tile, tile + 1, full}):
+        sub = tuple(a[:B] for a in args)
+        plan = cuda_ncc.ungrouped_plan(B, wsize, luma)
+        assert plan["tile"] % 4 == 0 and 1 <= plan["grid"] <= -(-B // plan["tile"]), plan
+        ragged += B % plan["tile"] != 0
+        out, fit = cuda_ncc.sample_windows(scene, *sub, wsize, luma=luma)
+        plain = _plain_fn(luma)(scene, *sub, wsize)
+        torch.cuda.synchronize()
+        assert fit.all() and out.shape == plain.shape
+        assert torch.equal(_bits(out), _bits(plain)), (B, plan)
+        assert torch.equal(_bits(out), _bits(grp[:B])), (B, plan)
+    assert ragged > 0
+    form = "luma_ungrouped" if luma else "ungrouped"
+    assert cuda_ncc.LAUNCHES[form] == len(cuda_ncc.WINDOWS[form]) > 0
+
+
+@pytest.mark.parametrize("luma", [False, True])
+def test_ungrouped_form_never_refuses_a_window_size(card, luma):
+    """Every window size 1-15 launches ungrouped (the run-time size
+    instance, and the compiled 7), with 1 window and 1,000, bit-equal to
+    the plain version; its plan never passes the card's shared memory."""
+    from mvskit_tpu_torch.ops import cuda_ncc
+    from mvskit_tpu_torch.utils import synthetic
+
+    _, _, scene = synthetic.plane_scene(n_views=6, width=160, height=120, device=card)
+    for wsize in range(1, 16):
+        args = _windows(scene, n_patch=16, n_cands=21, wsize=wsize)  # 1,008 windows
+        for B in (1, 1000):
+            sub = tuple(a[:B] for a in args)
+            plan = cuda_ncc.ungrouped_plan(B, wsize, luma)
+            out, _ = cuda_ncc.sample_windows(scene, *sub, wsize, luma=luma)
+            plain = _plain_fn(luma)(scene, *sub, wsize)
+            torch.cuda.synchronize()
+            assert torch.equal(_bits(out), _bits(plain)), (wsize, B, plan)
+
+
+@pytest.mark.parametrize("luma", [False, True])
+def test_ungrouped_plan_overrides_bitwise(card, luma):
+    """Whatever tile (1 to 64 windows), output stages and prologue the
+    ungrouped plan is forced to, the output at a ragged batch equals the
+    plain version bit for bit, at 7 x 7 and 9 x 9; the plan's own choice
+    returns after the override."""
+    from mvskit_tpu_torch.ops import cuda_ncc
+    from mvskit_tpu_torch.utils import synthetic
+
+    _, _, scene = synthetic.plane_scene(n_views=6, width=160, height=120, device=card)
+    own = cuda_ncc.ungrouped_plan(3001, WSIZE, luma)
+    assert (own["stages"], own["threads"], own["direct_prologue"]) == (1, 256, True), own
+    for wsize in (WSIZE, 9):
+        args = tuple(a[:3001] for a in _windows(scene, wsize=wsize))
+        plain = _plain_fn(luma)(scene, *args, wsize)
+        for tile in (1, 3, 4, 12, 32, 64):
+            for stages in (1, 2):
+                for direct in (False, True):
+                    with cuda_ncc.tile_override(tile=tile, stages=stages, direct=direct):
+                        plan = cuda_ncc.ungrouped_plan(3001, wsize, luma)
+                        out, _ = cuda_ncc.sample_windows(scene, *args, wsize, luma=luma)
+                    torch.cuda.synchronize()
+                    assert (plan["tile"], plan["stages"], plan["direct_prologue"]) == (
+                        tile, stages, direct)
+                    assert torch.equal(_bits(out), _bits(plain)), (wsize, plan)
+    assert cuda_ncc.ungrouped_plan(3001, WSIZE, luma) == own  # the override ended
+
+
+def test_ungrouped_ablation_switches_bitwise(card):
+    """K5 on the ungrouped forms (K1, K3u): every switch at a ragged
+    batch of 999 windows, at 7 x 7 (compiled) and 5 x 5 (run-time size),
+    equals its plain version bit for bit."""
+    from mvskit_tpu_torch.ops import cuda_ncc
+    from mvskit_tpu_torch.utils import synthetic
+
+    _, _, scene = synthetic.plane_scene(n_views=6, width=160, height=120, device=card)
+    cuda_ncc.reset_launches()
+    for wsize in (WSIZE, 5):
+        args = tuple(a[:999] for a in _windows(scene, n_patch=16, wsize=wsize))
+        for ablate in cuda_ncc.ABLATIONS[1:]:
+            for luma in (False, True):
+                out, _ = cuda_ncc.sample_windows(scene, *args, wsize, luma=luma,
+                                                 ablate=ablate)
+                plain = _plain_fn(luma)(scene, *args, wsize, ablate=ablate)
+                torch.cuda.synchronize()
+                assert torch.equal(_bits(out), _bits(plain)), (wsize, ablate, luma)
+    assert cuda_ncc.LAUNCHES == dict(_no_launches(), **{
+        f"ablate_{a}": 4 for a in cuda_ncc.ABLATIONS[1:]})
+
+
+def test_every_form_reads_the_illumination_it_is_given(card):
+    """The kernel computes each window's plane row as idx * ni + illum:
+    on a 3-illumination scene every form (ungrouped at a ragged batch,
+    grouped, fused; RGB and luma) at every illumination equals the plain
+    version at that illumination bit for bit."""
+    from mvskit_tpu_torch.ops import cuda_ncc
+    from mvskit_tpu_torch.utils import synthetic
+
+    _, _, scene = synthetic.sphere_scene(n_views=6, width=160, height=120, nillums=3,
+                                         device=card)
+    args = _windows(scene)
+    odd = tuple(a[:1001] for a in args)
+    for luma in (False, True):
+        for il in range(3):
+            plain = _plain_fn(luma)(scene, *args, WSIZE, illum=il)
+            for sub, group, fused in ((odd, 1, False), (args, 1, False), (args, 32, False),
+                                      (args, 32, True)):
+                out, _ = cuda_ncc.sample_windows(scene, *sub, WSIZE, illum=il, group=group,
+                                                 luma=luma, fused=fused)
+                torch.cuda.synchronize()
+                n = sub[0].shape[0]
+                assert torch.equal(_bits(out), _bits(plain[:n])), (luma, il, n, group, fused)
+
+
+def test_ungrouped_launch_refuses_an_output_past_int_max(card):
+    """A batch whose output passes INT_MAX floats (14,608,732 RGB windows
+    of 7 x 7) is refused by the launch, not run with wrapped offsets."""
+    from mvskit_tpu_torch.ops import cuda_ncc
+    from mvskit_tpu_torch.utils import synthetic
+
+    _, _, scene = synthetic.plane_scene(n_views=6, width=160, height=120, device=card)
+    B = 2**31 // (3 * WSIZE * WSIZE) + 1
+    idx = torch.zeros(B, dtype=torch.int32, device=card)
+    pts = torch.zeros((B, 2), dtype=torch.float32, device=card)
+    with pytest.raises(RuntimeError, match="ungrouped"):
+        cuda_ncc.sample_windows(scene, idx, idx, pts, pts, pts, WSIZE)
+    torch.cuda.synchronize()
 
 
 def test_pipeline_on_card_tracks_cpu(card, tmp_path):

@@ -75,19 +75,27 @@ def _t(a, dtype=None):
     return torch.as_tensor(np.array(a), dtype=dtype)
 
 
-@pytest.mark.parametrize("wsize", [5, 7, 9])
-@pytest.mark.parametrize("group", [1, 32])
-def test_plain_matches_jax_gather_path(scenes, group, wsize):
-    """At every window size the card's grouped kernel is compiled for
+@pytest.mark.parametrize("group,wsize,n_windows", [
+    *(pytest.param(g, w, None, id=f"{g}-{w}") for g in (1, 32) for w in (5, 7, 9)),
+    *(pytest.param(1, w, n, id=f"1-{w}-B{n}") for w in (5, 7) for n in (1, 127, 129)),
+])
+def test_plain_matches_jax_gather_path(scenes, group, wsize, n_windows):
+    """At every window size the card's window kernel is compiled for
     (7, and the run-time size instance at 5 and 9), the plain version it
-    is held to on the card agrees with the JAX gather path."""
+    is held to on the card agrees with the JAX gather path; also on
+    ungrouped batches of 1, 127 and 129 windows (one view each), which
+    are no multiple of the JAX kernel's W_BLK = 128 and leave the card's
+    tiles a ragged last tile."""
     Ps, js, ts = scenes
-    if group == 1:
+    if n_windows is not None:
+        coord, normal = jsyn.plane_points(Ps, n_windows, seed=4, extent=0.5)
+        coord, normal = coord.astype(np.float32), normal.astype(np.float32)
+    elif group == 1:
         coord, normal = jsyn.plane_points(Ps, 64, seed=4, extent=1.0)
         coord, normal = coord.astype(np.float32), normal.astype(np.float32)
     else:
         coord, normal = _candidates(Ps, 4, group, seed=5)
-    views = _views(coord.shape[0], 3)
+    views = _views(coord.shape[0], 3 if n_windows is None else 1)
     idx, lvl, tl, dx, dy, valid = _geometry(js, coord, normal, views, wsize)
     T, B = valid.shape
     jtex, jfit, ch = jncc.sample_windows_raw(
@@ -100,6 +108,7 @@ def test_plain_matches_jax_gather_path(scenes, group, wsize):
         ts, _t(idx), _t(lvl), _t(tl), _t(dx), _t(dy), wsize, group=group
     )
     assert fit.all() and out.shape == (T * B, 3 * wsize * wsize)
+    assert n_windows in (None, T * B)
     assert valid.mean() > 0.5, "fixture must exercise valid windows"
     np.testing.assert_allclose(out.numpy(), np.asarray(jtex).reshape(T * B, -1), atol=1e-3)
 
@@ -227,6 +236,8 @@ def test_wrapper_checks_and_counts_no_cpu_launch(scenes):
     out, fit = cuda_ncc.sample_windows(ts, idx, lvl, tl, d, d.flip(1).contiguous(), WSIZE)
     assert out.shape == (B, 3 * S) and fit.all()
     assert all(v == 0 for v in cuda_ncc.LAUNCHES.values())
+    assert cuda_ncc.WINDOWS.keys() == cuda_ncc.LAUNCHES.keys()
+    assert not any(cuda_ncc.WINDOWS.values())
     with pytest.raises(TypeError):
         cuda_ncc.sample_windows(ts, idx.long(), lvl, tl, d, d, WSIZE)
     with pytest.raises(ValueError):
