@@ -21,9 +21,8 @@ Phases (any failure raises and the process exits non-zero):
      H100); the window kernel's records (K1, K2, K3u, K3g) also carry
      their launch plan (tile, persistent grid, stages, store path) and
      ptxas's numbers, each K5 switch's time on the same windows, the
-     grouped ones K4's time and the ungrouped launch's plan and times,
-     the ungrouped ones their time at every tile size, with two stages
-     and under both prologues, and the timing floors beside it;
+     grouped ones K4's time and the ungrouped launch's plan and time,
+     the ungrouped ones the timing floors beside theirs;
   3. RGB main path: writes the 16 x 640x480, 4096-seed plane dataset and
      runs `mvskit_tpu_torch.cli.main` with the default config (3
      iterations, 8 rounds, 6 x 32 RGB search, 2^18-row table);
@@ -42,8 +41,8 @@ Phases (any failure raises and the process exits non-zero):
      default depth.
   8. K1 at the RGB path's batches: the ungrouped RGB launch timed,
      bounded and checked bit for bit at the median and the largest
-     batch that phase 3 gave it, with its tile, stage, prologue and K5
-     times there.
+     batch that phase 3 gave it, with its plan, K5 times and timing
+     floors there.
 Each path runs with the launch counters set to 0 just before it and
 read just after (launches and windows per launch of each form); each
 checks its outputs and, where the path has one, its quality against the
@@ -114,8 +113,6 @@ INSTANCE = {
 }
 LAUNCHED_INSTANCES = tuple(dict.fromkeys(INSTANCE.values())) + tuple(
     f"window_kernel<{c}, {WSIZE}, {a}>" for c in (3, 1) for a in range(1, 6))
-# the tiles the ungrouped records are timed at besides the plan's own
-SWEEP_TILES = (8, 16, 24, 32, 40, 48, 56, 64)
 
 
 def log(*a):
@@ -292,33 +289,6 @@ def measure(name, scene, wset, mode, group, fused=False):
     return rec, out_k
 
 
-def tile_times(scene, wset, mode):
-    """Device ms of the ungrouped launch on the same windows: with its
-    plan's tile forced to each of SWEEP_TILES (one stage, as the plan
-    takes), with the plan's own tile and two stages, and with the plan's
-    own tile under each prologue (the first tile's parameters staged by
-    cp.async, or read directly). Returns (tile_ms, two_stages_ms,
-    prologue_ms)."""
-    from mvskit_tpu_torch.ops import cuda_ncc
-    from mvskit_tpu_torch.tools.bench_kernel import cuda_time_ms
-
-    idx, lvl, tl, dx, dy = wset[:5]
-
-    def kern():
-        return cuda_ncc.sample_windows(scene, idx, lvl, tl, dx, dy, WSIZE,
-                                       luma=mode == "luma")[0]
-    tiles, prologue = {}, {}
-    for tile in SWEEP_TILES:
-        with cuda_ncc.tile_override(tile=tile):
-            tiles[tile] = cuda_time_ms(kern, 7)
-    with cuda_ncc.tile_override(stages=2):
-        two_stages = cuda_time_ms(kern, 7)
-    for name, direct in (("staged", False), ("direct", True)):
-        with cuda_ncc.tile_override(direct=direct):
-            prologue[name] = min(cuda_time_ms(kern, 7) for _ in range(2))
-    return tiles, two_stages, prologue
-
-
 def check_ungrouped(rec, scene, wset, mode, out):
     """The ungrouped output against the grouped launch (groups of
     N_CANDS) on the same windows, bit for bit (on the whole groups the
@@ -341,10 +311,13 @@ def check_ungrouped(rec, scene, wset, mode, out):
 def floor_times(scene, wset, mode, out):
     """Device ms, timed as the kernels are, of a launch that does next to
     nothing (torch's fill of 4 floats), of writing an output of the
-    record's size (torch's fill of it), and of the ungrouped launch on
-    the record's first window alone: the floor every launch pays in
-    this timing, the floor of the record's stores, and the kernel's own
-    fixed chain (prologue, one pass, store)."""
+    record's size (torch's fill of it), of the ungrouped launch on the
+    record's first window alone, and of a plane-row tensor
+    idx * ni + illum built for the record's windows (two elementwise
+    kernels): the floor every launch pays in this timing, the floor of
+    the record's stores, the kernel's own fixed chain (prologue, one
+    pass, store), and what a wrapper that builds the plane rows per call
+    adds to each call (the kernel computes them in its member table)."""
     import torch
 
     from mvskit_tpu_torch.ops import cuda_ncc
@@ -352,20 +325,22 @@ def floor_times(scene, wset, mode, out):
 
     tiny = torch.empty(4, device=out.device)
     full = torch.empty_like(out)
+    idx = wset[0]
+    ni = (scene.planes_luma_quad if mode == "luma" else scene.planes_packed).shape[1]
     one = tuple(x[:1] for x in wset[:5])
     return {"fill_4_floats": cuda_time_ms(lambda: tiny.fill_(1.0), 7),
             "fill_output": cuda_time_ms(lambda: full.fill_(1.0), 7),
             "one_window": cuda_time_ms(lambda: cuda_ncc.sample_windows(
-                scene, *one, WSIZE, luma=mode == "luma")[0], 7)}
+                scene, *one, WSIZE, luma=mode == "luma")[0], 7),
+            "plane_rows": cuda_time_ms(lambda: (idx * ni + 0).contiguous(), 7)}
 
 
 def ungrouped_extras(rec, scene, wset, mode, out, ptxas):
     """The ungrouped record's check against the grouped launch, its plan
-    and ptxas line, its times per tile and prologue, each K5 switch's
-    time on the same windows, and its timing floors."""
+    and ptxas line, each K5 switch's time on the same windows, and its
+    timing floors."""
     check_ungrouped(rec, scene, wset, mode, out)
     rec["ptxas"] = ptxas.get(f"window_kernel<{1 if mode == 'luma' else 3}, {WSIZE}, 0>")
-    rec["tile_ms"], rec["two_stages_ms"], rec["prologue_ms"] = tile_times(scene, wset, mode)
     rec["ablate_ms_same_windows"] = ablation_times(scene, wset, mode, 1)
     rec["floor_ms"] = floor_times(scene, wset, mode, out)
 
@@ -418,10 +393,8 @@ def kernel_phase(dev):
             rec["plan"] = cuda_ncc.grouped_plan(rec["windows"], WSIZE, group, mode == "luma")
             rec["ptxas"] = ptxas.get(INSTANCE[name])
             rec["ablate_ms_same_windows"] = ablation_times(scene, sets[wset], mode, group)
-            times = tile_times(scene, sets[wset], mode)
-            rec["ungrouped_same_windows"] = dict(
-                plan=cuda_ncc.ungrouped_plan(rec["windows"], WSIZE, mode == "luma"),
-                **dict(zip(("tile_ms", "two_stages_ms", "prologue_ms"), times)))
+            rec["ungrouped_plan_same_windows"] = cuda_ncc.ungrouped_plan(
+                rec["windows"], WSIZE, mode == "luma")
             del out_u
         else:  # the ungrouped forms, K1 and K3u
             ungrouped_extras(rec, scene, sets[wset], mode, out, ptxas)
@@ -431,8 +404,8 @@ def kernel_phase(dev):
                 ungrouped_extras(g, scene, sets["ungrouped"], mode, out_g, ptxas)
                 rec["gauntlet_windows"] = {k: g[k] for k in (
                     "windows", "ms", "plain_ms", "bound_ms", "bound_share",
-                    "bitwise_equal_grouped", "plan", "tile_ms", "two_stages_ms",
-                    "prologue_ms", "ablate_ms_same_windows", "floor_ms")}
+                    "bitwise_equal_grouped", "plan", "ablate_ms_same_windows",
+                    "floor_ms")}
                 del out_g
         rec["library_ms"] = None  # no single PyTorch call computes it (PERF.md)
         log(f"[kernel] {name} on {card}: " + json.dumps(rec))
@@ -453,26 +426,26 @@ def path_batch_phase(dev, batches):
     """Phase 8: K1 at the median and the largest batch the RGB path gave
     it, on that many gauntlet windows (plane patches x 6 views, the
     first `n` T-major), timed, bounded and bit for bit against its plain
-    version and the grouped launch, with its times per tile, stages and
-    prologue and each K5 switch's time. Returns {"median"|"max":
-    record}."""
+    version and the grouped launch, with each K5 switch's time and the
+    timing floors. `batches` counts the path's launches per batch size.
+    Returns {"median"|"max": record}."""
     import torch
 
     out = {}
-    for what, n in (("median", int(statistics.median(batches))), ("max", max(batches))):
+    median = int(statistics.median(batches.elements()))
+    for what, n in (("median", median), ("max", max(batches))):
         scene, sets = window_sets(dev, n_points=-(-n // TAU), grouped=False)
         idx, lvl, tl, dx, dy, valid = sets["ungrouped"][:6]
         wset = (idx[:n], lvl[:n], tl[:n], dx[:n], dy[:n], valid.reshape(1, -1)[:, :n], 1, n)
         rec, out_k = measure(f"sample_windows_ungrouped ({what} RGB path batch)", scene,
                              wset, "rgb", 1)
         check_ungrouped(rec, scene, wset, "rgb", out_k)
-        rec["tile_ms"], rec["two_stages_ms"], rec["prologue_ms"] = tile_times(
-            scene, wset, "rgb")
         rec["ablate_ms_same_windows"] = ablation_times(scene, wset, "rgb", 1)
+        rec["floor_ms"] = floor_times(scene, wset, "rgb", out_k)
         log(f"[batches] K1 at the RGB path's {what} batch: " + json.dumps(rec))
         out[what] = {k: rec[k] for k in ("windows", "ms", "plain_ms", "bound_ms",
                                          "bound_share", "max_abs_err", "plan",
-                                         "prologue_ms")}
+                                         "floor_ms")}
         del out_k, sets
         torch.cuda.empty_cache()
     return out
@@ -541,11 +514,14 @@ def plane_quality(cloud):
 
 def path_windows():
     """Per launch form (and ablation switch) the path launched, its
-    windows per launch: count, median and max, and the batch sizes."""
+    windows per launch: count, median and max, and its launches per
+    batch size."""
+    import collections
+
     from mvskit_tpu_torch.ops import cuda_ncc
 
-    return {k: {"count": len(v), "median": statistics.median(v), "max": max(v),
-                "batches": list(v)}
+    return {k: {"count": v.total(), "median": statistics.median(v.elements()),
+                "max": max(v), "batches": collections.Counter(v)}
             for k, v in cuda_ncc.WINDOWS.items() if v}
 
 
@@ -793,12 +769,12 @@ def main() -> int:
             entry["fused_ms_same_windows"] = r["fused_ms_same_windows"]
         if "bitwise_equal_grouped" in r and not fused:  # K1 and K3u
             entry.update(bitwise_equal_grouped=r["bitwise_equal_grouped"],
-                         prologue_ms=r["prologue_ms"])
+                         floor_ms=r["floor_ms"])
         if form == "ungrouped":
             entry["path_batches"] = k1_batches
         if "gauntlet_windows" in r:  # K3u
             entry["gauntlet_windows"] = {k: r["gauntlet_windows"][k] for k in (
-                "windows", "ms", "bound_ms", "plan", "prologue_ms")}
+                "windows", "ms", "bound_ms", "plan", "floor_ms")}
         kernels.append(entry)
     # one entry per ablation switch: its grouped RGB run on the bench
     # path, with the grouped luma run beside it

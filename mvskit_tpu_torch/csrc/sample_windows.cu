@@ -52,10 +52,9 @@
 //   * staged parameters: a tile's slices of idx, lvl, tl, dx and dy are
 //     contiguous (1 KB at 32 windows); the next tile's are copied into
 //     a double buffer in shared memory with cp.async while the current
-//     tile samples; a block's first tile is copied the same way (the
-//     grouped forms), or read straight from global memory into the
-//     member table (the ungrouped forms' direct prologue: most of their
-//     blocks take one tile, and nothing overlaps that copy);
+//     tile samples; a block's first tile is copied the same way (reading
+//     it straight from global memory into the member table measured
+//     level with the copy, PERF.md §6);
 //   * a member table, resolved once per tile: each member's plane base,
 //     level width and height (the 8-way level select once per member,
 //     not per sample) and the lattice's partial sums tl + dx * i and
@@ -91,16 +90,15 @@
 //     where they fit; a shared-memory request the card refuses (RGB
 //     group 128 at 15x15) returns its error, and the wrapper raises. The
 //     ungrouped forms (plan_ungrouped) take 256 threads, one stage and
-//     the smallest G, a multiple of 4 (16-byte parameter copies, TMA
-//     stores of 7x7 runs), whose tiles all fit the card's resident
-//     blocks at once (the gauntlet's 24,576 RGB windows: G = 32, 768
-//     blocks of one tile each), else the largest tile (64 windows of
-//     7x7), which a large batch's blocks walk several of; no window size
-//     or batch it takes is refused. Small batches stay far from their
-//     bound whatever the tile: at 24,576 windows the tiles from 16 to 64
-//     measured close together (PERF.md §6), and a launch's fixed costs
-//     (block start, the parameter fetch, the closing store) set much of
-//     their time.
+//     a tile of a fixed sample count, 1,960 RGB samples (40 windows of
+//     7x7) or 3,136 luma samples (64 windows), at most 64 windows and
+//     rounded down to a multiple of 4 (16-byte parameter copies, TMA
+//     stores of 7x7 runs); no window size or batch it takes is refused.
+//     These tiles measured fastest, or within 3 % of the fastest, at the
+//     batches the paths give the two forms (PERF.md §6). Small batches
+//     stay far from their bound whatever the tile: a launch's fixed
+//     costs (block start, the parameter fetch, the closing store) set
+//     much of their time.
 // The sample routines keep the gather path's rounding, so every form
 // equals the plain version, and the grouped launch equals the ungrouped
 // one, bit for bit. Tensor cores do not apply: a bilinear gather has no
@@ -147,7 +145,6 @@
 #include <stdint.h>
 
 #include <algorithm>
-#include <atomic>
 #include <map>
 #include <mutex>
 #include <set>
@@ -501,45 +498,30 @@ struct Members {
   float2* c;      // [G * ws]
 };
 
-// a parameter word from the staged copy in shared memory, or (GLOBAL)
-// from global memory through the read-only path
-template <bool GLOBAL, typename T>
-__device__ __forceinline__ T param(const T* p) {
-  return GLOBAL ? __ldg(p) : *p;
-}
-
-// the member table of the tile's n windows, whose parameters start at
-// idx, lvl, tl, dx and dy (in shared memory, or in global memory)
-template <int ABL, bool GLOBAL>
-__device__ __forceinline__ void resolve_members(
-    const int* idx, const int* lvl, const float* tl, const float* dx, const float* dy,
-    const Members& t, const LevelMeta& meta, int total, int ni, int illum, int n,
-    int ws) {
+// the member table of the tile's n windows from its raw parameter
+// buffer in shared memory (laid out for G); member m reads plane row
+// idx[m] * ni + illum
+template <int ABL>
+__device__ __forceinline__ void resolve_members(const int* raw, int G, const Members& t,
+                                                const LevelMeta& meta, int total, int ni,
+                                                int illum, int n, int ws) {
+  const int* idx = raw;
+  const int* lvl = raw + G;
+  const float* f = reinterpret_cast<const float*>(raw);
+  const float *tl = f + 2 * G, *dx = f + 4 * G, *dy = f + 6 * G;
   for (int m = threadIdx.x; m < n; m += blockDim.x) {
     int off, w, h;
-    level_meta(meta, clamp_level(param<GLOBAL>(lvl + m), meta.n), off, w, h);
-    t.base[m] = (int64_t)(param<GLOBAL>(idx + m) * ni + illum) * total + off;
+    level_meta(meta, clamp_level(lvl[m], meta.n), off, w, h);
+    t.base[m] = (int64_t)(idx[m] * ni + illum) * total + off;
     t.wh[m] = make_int2(w, h);
   }
   for (int e = threadIdx.x; e < n * ws; e += blockDim.x) {
     const int m = e / ws;
     const float k = ABL == ABL_NOWX ? 0.0f : (float)(e - m * ws);
-    const float tx = param<GLOBAL>(tl + 2 * m), ty = param<GLOBAL>(tl + 2 * m + 1);
-    const float dxx = param<GLOBAL>(dx + 2 * m), dxy = param<GLOBAL>(dx + 2 * m + 1);
-    const float dyx = param<GLOBAL>(dy + 2 * m), dyy = param<GLOBAL>(dy + 2 * m + 1);
-    t.a[e] = make_float2(__fadd_rn(tx, __fmul_rn(dxx, k)), __fadd_rn(ty, __fmul_rn(dxy, k)));
-    t.c[e] = make_float2(__fmul_rn(dyx, k), __fmul_rn(dyy, k));
+    t.a[e] = make_float2(__fadd_rn(tl[2 * m], __fmul_rn(dx[2 * m], k)),
+                         __fadd_rn(tl[2 * m + 1], __fmul_rn(dx[2 * m + 1], k)));
+    t.c[e] = make_float2(__fmul_rn(dy[2 * m], k), __fmul_rn(dy[2 * m + 1], k));
   }
-}
-
-// the member table from a raw parameter buffer in shared memory
-template <int ABL>
-__device__ __forceinline__ void resolve_staged(const int* raw, int G, const Members& t,
-                                               const LevelMeta& meta, int total, int ni,
-                                               int illum, int n, int ws) {
-  const float* f = reinterpret_cast<const float*>(raw);
-  resolve_members<ABL, false>(raw, raw + G, f + 2 * G, f + 4 * G, f + 6 * G, t, meta,
-                              total, ni, illum, n, ws);
 }
 
 // one tile's n * S samples into its stage (rows [C * S], channel-major),
@@ -608,8 +590,7 @@ __device__ __forceinline__ int tile_members(int tile, int G, int B) {
 // consecutive windows with stride gridDim.x. Dynamic shared memory
 // (plan_tiles): `nstages` output stages of stage_floats floats, two raw
 // parameter buffers (8 * G words each), then the member table. A block
-// resolves its first tile's members from a staged copy, or straight from
-// global memory (direct). Per tile: the next tile's parameters are
+// resolves its first tile's members from a staged copy. Per tile: the next tile's parameters are
 // copied in with cp.async while this tile samples; the stage goes out as
 // one TMA bulk store (tma) that overlaps the next tile's work, or as
 // coalesced float stores where the tile's run is not 16-byte sized (a
@@ -621,7 +602,7 @@ window_kernel(const int* __restrict__ planes, LevelMeta meta, int total, int ni,
               int illum, const int* __restrict__ idx, const int* __restrict__ lvl,
               const float* __restrict__ tl, const float* __restrict__ dx,
               const float* __restrict__ dy, float* __restrict__ out, int B, int wsize,
-              int G, int stage_floats, int nstages, int tma, int vec16, int direct) {
+              int G, int stage_floats, int nstages, int tma, int vec16) {
   const int ws = WS > 0 ? WS : wsize;
   const int S = ws * ws;
   const int ntiles = (B - 1) / G + 1;
@@ -637,17 +618,11 @@ window_kernel(const int* __restrict__ planes, LevelMeta meta, int total, int ni,
 
   int g = blockIdx.x;
   int n = tile_members(g, G, B);
-  if (direct) {
-    const int64_t b0 = (int64_t)g * G;
-    resolve_members<ABL, true>(idx + b0, lvl + b0, tl + 2 * b0, dx + 2 * b0, dy + 2 * b0,
-                               t, meta, total, ni, illum, n, ws);
-  } else {
-    copy_params(raw, G, (int64_t)g * G, n, vec16, idx, lvl, tl, dx, dy);
-    cp_async_commit();
-    cp_async_wait_all();
-    __syncthreads();
-    resolve_staged<ABL>(raw, G, t, meta, total, ni, illum, n, ws);
-  }
+  copy_params(raw, G, (int64_t)g * G, n, vec16, idx, lvl, tl, dx, dy);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  resolve_members<ABL>(raw, G, t, meta, total, ni, illum, n, ws);
   for (int it = 0; g < ntiles; g += gridDim.x, ++it) {
     const int nxt = (it & 1) ^ 1;
     const int next = g + gridDim.x;
@@ -673,7 +648,7 @@ window_kernel(const int* __restrict__ planes, LevelMeta meta, int total, int ni,
       for (int k = threadIdx.x; k < n_out; k += blockDim.x) gout[k] = st[k];
     }
     if (n_next)
-      resolve_staged<ABL>(raw + nxt * 8 * G, G, t, meta, total, ni, illum, n_next, ws);
+      resolve_members<ABL>(raw + nxt * 8 * G, G, t, meta, total, ni, illum, n_next, ws);
     n = n_next;
   }
   if (tma && threadIdx.x == 0) bulk_wait_all();
@@ -841,8 +816,7 @@ static int resident_blocks(const void* fn, int dev, int threads, int smem, int* 
 }
 
 struct Plan {
-  int tile, grid, threads, smem, stages, tma, vec16, direct, blocks_per_sm, sms,
-      stage_floats;
+  int tile, grid, threads, smem, stages, tma, vec16, blocks_per_sm, sms, stage_floats;
 };
 
 // dynamic shared memory of a tile of G windows: `stages` output stages
@@ -860,7 +834,7 @@ static int tile_smem(int C, int G, int wsize, int stages) {
 // store where a whole tile's run is a multiple of 16 bytes and the
 // output 16-byte aligned; 16-byte parameter copies where G is a multiple
 // of 4 and the parameter arrays 16-byte aligned; the persistent grid
-// min(tiles, SMs x resident blocks per SM); the staged prologue.
+// min(tiles, SMs x resident blocks per SM).
 template <int C, int WS, int ABL>
 static int plan_tiles(const DeviceInfo& d, int B, int wsize, int G, int stages,
                       int threads, bool out16, bool params16, Plan* p) {
@@ -873,7 +847,6 @@ static int plan_tiles(const DeviceInfo& d, int B, int wsize, int G, int stages,
   p->threads = threads > 0 ? threads : group_threads(G * wsize * wsize);
   p->tma = run % 4 == 0 && out16;
   p->vec16 = G % 4 == 0 && params16;
-  p->direct = 0;
   p->sms = d.sms;
   const void* fn = (const void*)window_kernel<C, WS, ABL>;
   int err = opt_in_smem(fn, d);
@@ -898,60 +871,29 @@ static int plan_grouped(int B, int wsize, int group, bool out16, bool params16, 
   return plan_tiles<C, WS, ABL>(d, B, wsize, group, stages, 0, out16, params16, p);
 }
 
-// a measurement override of the ungrouped plan
-// (mvs_sample_windows_tile_override): tile, output stages and prologue;
-// 0 (-1 for the prologue) leaves the plan's own choice
-static std::atomic<int> g_tile_override{0}, g_stages_override{0}, g_direct_override{-1};
-
-// the ungrouped plan's largest tile, in windows and in samples (64
-// windows of 7 x 7)
+// The ungrouped forms (tiles of independent consecutive windows):
+// MVS_THREADS per block, one output stage (a second one only cost
+// resident blocks) and a tile of a fixed sample count, MVS_TILE_RGB or
+// MVS_TILE_LUMA samples (40 RGB or 64 luma windows of 7 x 7), at most
+// MVS_MAX_TILE windows and rounded down to a multiple of 4. Measured on
+// an H100 (PERF.md §6): at the batches the paths give K1 (24,576 to
+// 131,072 windows) the 40-window RGB tile is the fastest or within 3 %
+// of it, and at K3u's (436,032 to 786,432) the 64-window luma tile is
+// the fastest. Never refuses a window size: a tile of 4 fits the card
+// at every size up to 15 x 15.
 #define MVS_MAX_TILE 64
-#define MVS_MAX_TILE_SAMPLES 3136
+#define MVS_TILE_RGB 1960
+#define MVS_TILE_LUMA 3136
 
-// The ungrouped forms (tiles of independent windows): MVS_THREADS per
-// block, one output stage and the direct prologue, and the smallest tile
-// (a multiple of 4) whose tiles all fit the card's resident blocks at
-// once, so every block takes one tile; a batch too large for that takes
-// the largest tile (64 windows, fewer at windows over 7 x 7), and each
-// block walks several. Measured on an H100 (PERF.md §6, chip_smoke.py's
-// tile_times): at 24,576 windows of 7 x 7 the one-tile-per-block choice
-// (32 RGB, 24 luma) is among the fastest tiles; at 786,432 windows the
-// largest tiles with one stage are fastest (a second stage costs
-// resident blocks and gains nothing there); the direct prologue is
-// level with the staged one or faster. Never refuses a window size: a
-// tile of 4 fits the card at every size up to 15 x 15.
 template <int C, int WS, int ABL>
 static int plan_ungrouped(int B, int wsize, bool out16, bool params16, Plan* p) {
   if (B < 1 || wsize < 1) return (int)cudaErrorInvalidValue;
   DeviceInfo d;
-  int err = device_info(&d);
+  const int err = device_info(&d);
   if (err) return err;
-  const int tile = g_tile_override.load(), stages = g_stages_override.load();
-  const int direct = g_direct_override.load();
-  const int largest =
-      std::max(4, std::min(MVS_MAX_TILE, MVS_MAX_TILE_SAMPLES / (wsize * wsize)) & ~3);
-  auto plan = [&](int G, Plan* q) {
-    return plan_tiles<C, WS, ABL>(d, B, wsize, G, stages > 0 ? stages : 1, MVS_THREADS,
-                                  out16, params16, q);
-  };
-  auto fits = [&](int G, const Plan& q) { return ((int64_t)B + G - 1) / G <= q.grid; };
-  // the largest tile first: a batch whose largest tiles do not all fit
-  // at once takes it, and the search for a smaller one is skipped
-  err = plan(tile > 0 ? tile : largest, p);
-  if (err) return err;
-  if (tile <= 0 && fits(largest, *p)) {
-    for (int G = 4; G < largest; G += 4) {
-      Plan q;
-      err = plan(G, &q);
-      if (err) return err;
-      if (fits(G, q)) {
-        *p = q;
-        break;
-      }
-    }
-  }
-  p->direct = direct >= 0 ? direct : 1;
-  return 0;
+  const int samples = C == 3 ? MVS_TILE_RGB : MVS_TILE_LUMA;
+  const int G = std::max(4, std::min(MVS_MAX_TILE, samples / (wsize * wsize)) & ~3);
+  return plan_tiles<C, WS, ABL>(d, B, wsize, G, 1, MVS_THREADS, out16, params16, p);
 }
 
 static bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
@@ -968,7 +910,7 @@ static int launch_windows_ws(const Launch& a, bool grouped) {
   if (err) return err;
   window_kernel<C, WS, ABL><<<p.grid, p.threads, p.smem, a.stream>>>(
       a.planes, a.meta, a.total, a.ni, a.illum, a.idx, a.lvl, a.tl, a.dx, a.dy, a.out,
-      a.B, a.wsize, p.tile, p.stage_floats, p.stages, p.tma, p.vec16, p.direct);
+      a.B, a.wsize, p.tile, p.stage_floats, p.stages, p.tma, p.vec16);
   return (int)cudaGetLastError();
 }
 
@@ -1104,8 +1046,8 @@ extern "C" int mvs_sample_windows_luma_fused(MVS_COMMON_PARAMS, int group,
 // FORM_GROUPED, FORM_LUMA_UNGROUPED or FORM_LUMA_GROUPED; `group` for the
 // grouped forms): writes tile, grid, threads, dynamic shared memory
 // bytes, output stages, TMA store (0/1), 16-byte parameter copies (0/1),
-// direct prologue (0/1), resident blocks per SM, SM count and floats per
-// stage into plan[0..10]. Returns the error the launch would return,
+// resident blocks per SM, SM count and floats per stage into plan[0..9].
+// Returns the error the launch would return,
 // else 0.
 extern "C" int mvs_sample_windows_plan(int form, int B, int wsize, int group, int* plan) {
   Plan p;
@@ -1132,17 +1074,8 @@ extern "C" int mvs_sample_windows_plan(int form, int B, int wsize, int group, in
       return (int)cudaErrorInvalidValue;
   }
   if (err) return err;
-  const int v[11] = {p.tile, p.grid, p.threads, p.smem, p.stages, p.tma, p.vec16,
-                     p.direct, p.blocks_per_sm, p.sms, p.stage_floats};
-  for (int k = 0; k < 11; ++k) plan[k] = v[k];
+  const int v[10] = {p.tile, p.grid, p.threads, p.smem, p.stages, p.tma, p.vec16,
+                     p.blocks_per_sm, p.sms, p.stage_floats};
+  for (int k = 0; k < 10; ++k) plan[k] = v[k];
   return 0;
-}
-
-// Sets the measurement override of the ungrouped plan: tile (windows,
-// at least 1), output stages (1 or 2) and prologue (1 direct, 0 staged);
-// 0, 0, -1 restore the plan's own choices.
-extern "C" void mvs_sample_windows_tile_override(int tile, int stages, int direct) {
-  g_tile_override = tile;
-  g_stages_override = stages;
-  g_direct_override = direct;
 }

@@ -163,11 +163,8 @@ def load_library() -> ctypes.CDLL:
                 for form in ("grouped", "fused"):
                     fn = getattr(lib, f"mvs_sample_windows_{chans}{form}")
                     fn.argtypes, fn.restype = common + [i32, i32, ptr], i32
-            # (form, B, wsize, group, int plan[11])
+            # (form, B, wsize, group, int plan[10])
             lib.mvs_sample_windows_plan.argtypes = [i32] * 4 + [ints]
             lib.mvs_sample_windows_plan.restype = i32
-            # (tile, stages, direct)
-            lib.mvs_sample_windows_tile_override.argtypes = [i32] * 3
-            lib.mvs_sample_windows_tile_override.restype = None
             _lib = lib
         return _lib

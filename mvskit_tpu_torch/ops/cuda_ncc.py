@@ -17,17 +17,15 @@ same arithmetic on the gather path. ``ablate`` names one of the
 measurement switches of the JAX kernel (``ABLATIONS``), each of which
 drops one stage of the work and has a defined output that its plain
 version repeats. ``LAUNCHES`` counts kernel launches per form, and
-ablated launches per switch; ``WINDOWS`` keeps the batch size of each
-of those launches. ``grouped_plan`` and ``ungrouped_plan`` report how
-the persistent window kernel launches a batch on the current card (tile,
-grid, threads, shared memory, output stages, store path);
-``tile_override`` forces the ungrouped plan's tile, stages or prologue
-for a measurement.
+ablated launches per switch; ``WINDOWS`` counts those launches per
+batch size. ``grouped_plan`` and ``ungrouped_plan`` report how the
+persistent window kernel launches a batch on the current card (tile,
+grid, threads, shared memory, output stages, store path).
 """
 
 from __future__ import annotations
 
-import contextlib
+import collections
 import ctypes
 import functools
 
@@ -49,8 +47,8 @@ LAUNCHES = {"ungrouped": 0, "grouped": 0, "luma_ungrouped": 0,
 _W_BLK = 128
 
 
-# the batch size (windows) of every launch counted in LAUNCHES, per key
-WINDOWS = {k: [] for k in LAUNCHES}
+# per key of LAUNCHES, its launches counted by batch size (windows)
+WINDOWS = {k: collections.Counter() for k in LAUNCHES}
 
 
 def reset_launches() -> None:
@@ -252,14 +250,14 @@ def _launch(scene: Scene, idx, lvl, tl, dx, dy, wsize: int, illum: int,
                            f"failed: CUDA error {err}")
     key = f"ablate_{ablate}" if ablate else form
     LAUNCHES[key] += 1
-    WINDOWS[key].append(B)
+    WINDOWS[key][B] += 1
     return out
 
 
 # csrc/sample_windows.cu's Form enum values of the window kernel's forms
 _FORMS = {"ungrouped": 0, "grouped": 1, "luma_ungrouped": 2, "luma_grouped": 3}
 PLAN_KEYS = ("tile", "grid", "threads", "smem_bytes", "stages", "tma_store",
-             "param_copy16", "direct_prologue", "blocks_per_sm", "sms", "stage_floats")
+             "param_copy16", "blocks_per_sm", "sms", "stage_floats")
 
 
 def _plan(form: str, B: int, wsize: int, group: int) -> dict:
@@ -272,7 +270,7 @@ def _plan(form: str, B: int, wsize: int, group: int) -> dict:
         raise RuntimeError(f"sample_windows {form} plan (B {B}, wsize {wsize}, group "
                            f"{group}) failed: CUDA error {err}")
     rec = dict(zip(PLAN_KEYS, plan))
-    for k in ("tma_store", "param_copy16", "direct_prologue"):
+    for k in ("tma_store", "param_copy16"):
         rec[k] = bool(rec[k])
     return rec
 
@@ -283,8 +281,7 @@ def grouped_plan(B: int, wsize: int, group: int, luma: bool = False) -> dict:
     the tile (= group), the persistent grid, threads per block, dynamic
     shared memory, output stages (2, or 1 where two exceed the card's
     shared memory), whether a tile's run leaves by TMA bulk store,
-    whether parameters are copied in 16-byte chunks, whether a block's
-    first tile is read straight from global memory, resident blocks per
+    whether parameters are copied in 16-byte chunks, resident blocks per
     SM and the SM count. Raises where the launch would fail (a
     shared-memory size the card refuses). Needs the card."""
     return _plan("luma_grouped" if luma else "grouped", B, wsize, group)
@@ -292,27 +289,10 @@ def grouped_plan(B: int, wsize: int, group: int, luma: bool = False) -> dict:
 
 def ungrouped_plan(B: int, wsize: int, luma: bool = False) -> dict:
     """How the ungrouped form launches B windows of wsize on the current
-    card: the same record as ``grouped_plan``, with the tile of
-    consecutive windows the plan chose for B (the smallest whose tiles
-    all fit the card's resident blocks at once, else the largest, 64 at
-    7 x 7), one output stage and the direct prologue. Needs the card."""
+    card: the same record as ``grouped_plan``, with tiles of consecutive
+    windows of a fixed sample count (40 RGB or 64 luma windows at 7 x 7)
+    and one output stage. Needs the card."""
     return _plan("luma_ungrouped" if luma else "ungrouped", B, wsize, 1)
-
-
-@contextlib.contextmanager
-def tile_override(tile: int = 0, stages: int = 0, direct: bool | None = None):
-    """Within the block, the ungrouped plan takes `tile` windows a tile,
-    `stages` output stages (1 or 2) and the direct (True) or staged
-    (False) prologue; 0 / None keep the plan's own choice. A measurement
-    switch of the current process. Needs the card."""
-    from . import _build
-
-    lib = _build.load_library()
-    lib.mvs_sample_windows_tile_override(tile, stages, -1 if direct is None else int(direct))
-    try:
-        yield
-    finally:
-        lib.mvs_sample_windows_tile_override(0, 0, -1)
 
 
 def sample_windows(scene: Scene, idx, lvl, tl, dx, dy, wsize: int,
