@@ -43,6 +43,17 @@ Phases (any failure raises and the process exits non-zero):
      bounded and checked bit for bit at the median and the largest
      batch that phase 3 gave it, with its plan, K5 times and timing
      floors there.
+  9. meshes: `PMMVS` on phase 3's dataset with the default config,
+     unsharded and then with the meshes (dp, view, tile) = (1, 2, 1),
+     (1, 1, 2) and (2, 2, 2) as logical shards of the one card
+     (`mesh_devices=[cuda:0] * k`); each sharded run's alive counts per
+     iteration and cloud (coord, normal, ncc, images) equal the
+     unsharded run's bit for bit, and every view shard launched K1 and
+     K2 on its own windows;
+ 10. multihost: `mvskit_tpu_torch.tools.multihost_ncc` as two processes
+     on the card joined by gloo, then as one process on nccl (a real
+     NCCL init and all_reduce); each rank's view-sharded NCC equals its
+     single-process value (each child has a timeout).
 Each path runs with the launch counters set to 0 just before it and
 read just after (launches and windows per launch of each form); each
 checks its outputs and, where the path has one, its quality against the
@@ -538,6 +549,7 @@ def summarize(tag, report, wall, launches, windows, m):
                "filter_kills": report["filters"], "hypotheses": hyp,
                "propagate_s": prop_s, "hypotheses_per_s": hyp / max(prop_s, 1e-9),
                "peak_mem_gib": report.get("peak_mem_gib"), "quality": m,
+               "view_shards": report.get("shards"),
                "windows": {k: {f: v[f] for f in ("count", "median", "max")}
                            for k, v in windows.items()}}
     log(f"[{tag}] summary " + json.dumps(summary))
@@ -590,7 +602,17 @@ def cli_path(tag, dev, prefix, *flags):
     return report, wall, launches, windows, plane_quality(cloud)
 
 
-def engine_path(tag, dev, prefix, scene=None, **overrides):
+def shard_stats():
+    """The view-sharded sampler's calls per (shard, form) with their
+    windows per launch, and its host syncs."""
+    from mvskit_tpu_torch.ops import ncc
+
+    calls = {f"{s}/{f}": {"launches": n, "windows_per_launch": ncc.SHARD_WINDOWS[s, f] / n}
+             for (s, f), n in sorted(ncc.SHARD_CALLS.items())}
+    return {"calls": calls, "syncs": ncc.SHARD_SYNCS["sampler"]}
+
+
+def engine_path(tag, dev, prefix, scene=None, mesh_devices=None, **overrides):
     """PMMVS through the Python API (the luma search has no CLI flag),
     seed + run, with the launch counters reset just before and read
     just after. Returns (engine, report, wall, launches, windows, m)."""
@@ -598,7 +620,7 @@ def engine_path(tag, dev, prefix, scene=None, **overrides):
     import torch
 
     from mvskit_tpu_torch.config import MVSConfig
-    from mvskit_tpu_torch.ops import cuda_ncc
+    from mvskit_tpu_torch.ops import cuda_ncc, ncc
     from mvskit_tpu_torch.pipeline.driver import PMMVS
 
     cfg = MVSConfig.from_option_file(prefix)
@@ -607,8 +629,10 @@ def engine_path(tag, dev, prefix, scene=None, **overrides):
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     cuda_ncc.reset_launches()
+    ncc.reset_shard_stats()
     t0 = time.time()
-    engine = PMMVS(cfg, scene=scene, device=dev, log=lambda *a: None)
+    engine = PMMVS(cfg, scene=scene, device=dev, log=lambda *a: None,
+                   mesh_devices=mesh_devices)
     try:
         engine.seed()
         engine.run(write_snapshots=False)
@@ -620,7 +644,7 @@ def engine_path(tag, dev, prefix, scene=None, **overrides):
         data = engine.collect()
     finally:
         engine.close()
-    report = dict(engine.report, peak_mem_gib=(
+    report = dict(engine.report, shards=shard_stats(), peak_mem_gib=(
         torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else None))
     cloud = data["coord"][:, :3]
     if cloud.shape[0] <= 0 or not np.isfinite(cloud).all():
@@ -672,6 +696,102 @@ def pmvs_phase(dev, workdir):
     if report["strategy"] != "pmvs":
         raise AssertionError(f"pmvs path ran strategy {report['strategy']!r}")
     return summary
+
+
+MESHES = ((1, 2, 1), (1, 1, 2), (2, 2, 2))
+
+
+def mesh_phase(dev, workdir, rgb):
+    """Phase 9: the unsharded RGB run through PMMVS on phase 3's dataset,
+    then each mesh of MESHES as logical shards of the card, each with
+    the counters set to 0 just before it and read just after. A sharded
+    run must keep the unsharded run's alive counts per iteration and its
+    cloud bit for bit, and each view shard must launch K1 and K2.
+    Returns {name: summary}."""
+    import numpy as np
+    import torch
+
+    card0 = torch.device("cuda", 0)
+    plane = os.path.join(workdir, "plane16")
+    out = {}
+    engine, *res = engine_path("mesh_1x1x1", dev, plane)
+    base = engine.collect()
+    out["1x1x1"] = summarize("mesh_1x1x1", *res)
+    if out["1x1x1"]["alive_per_iter"] != rgb["alive_per_iter"]:
+        raise AssertionError(f"unsharded PMMVS run {out['1x1x1']['alive_per_iter']} differs "
+                             f"from the RGB path {rgb['alive_per_iter']}")
+    del engine
+    for dp, view, tile in MESHES:
+        name = f"{dp}x{view}x{tile}"
+        engine, *res = engine_path(f"mesh_{name}", dev, plane,
+                                   mesh_devices=[card0] * (dp * view * tile),
+                                   mesh_dp=dp, mesh_view=view, mesh_tile=tile)
+        got = engine.collect()
+        del engine
+        summary = summarize(f"mesh_{name}", *res)
+        out[name] = summary
+        if summary["alive_per_iter"] != out["1x1x1"]["alive_per_iter"]:
+            raise AssertionError(f"mesh {name}: alive {summary['alive_per_iter']} vs "
+                                 f"{out['1x1x1']['alive_per_iter']} unsharded")
+        for k in ("coord", "normal", "ncc", "images"):
+            if not np.array_equal(got[k], base[k]):
+                raise AssertionError(f"mesh {name}: cloud {k} differs from the unsharded run")
+        calls = summary["view_shards"]["calls"]
+        for s_ in range(view if view > 1 else 0):
+            for form in ("ungrouped", "grouped"):
+                if calls.get(f"{s_}/{form}", {}).get("launches", 0) <= 0:
+                    raise AssertionError(f"mesh {name}: view shard {s_} launched no {form}")
+        if not (summary["launches"]["ungrouped"] > 0 and summary["launches"]["grouped"] > 0):
+            raise AssertionError(f"mesh {name} missed a kernel: {summary['launches']}")
+        log(f"[mesh_{name}] cloud and alive counts equal to the unsharded run bit for bit")
+    return out
+
+
+def multihost_phase():
+    """Phase 10: tools/multihost_ncc as two ranks on the card joined by
+    gloo, then as one rank on nccl. Every child has a timeout; one that
+    fails, disagrees or hangs fails the phase. Returns the records."""
+    import socket
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    records = {}
+    for backend, world in (("gloo", 2), ("nccl", 1)):
+        s = socket.socket()
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+        s.close()
+        with tempfile.TemporaryDirectory(prefix="mvskit_mh_") as td:
+            outs = [os.path.join(td, f"rank{r}.json") for r in range(world)]
+            procs = [subprocess.Popen(
+                [sys.executable, "-m", "mvskit_tpu_torch.tools.multihost_ncc", str(r),
+                 str(world), str(port), outs[r], "--backend", backend, "--device", "cuda",
+                 "--local-shards", "2"],
+                cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True) for r in range(world)]
+            errs = []
+            try:
+                for p in procs:
+                    _, se = p.communicate(timeout=300)
+                    errs.append(se[-1500:])
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            if any(p.returncode != 0 for p in procs):
+                raise AssertionError(f"multihost {backend}: rank failed: {errs}")
+            recs = []
+            for o in outs:
+                with open(o) as f:
+                    recs.append(json.load(f))
+        for rec in recs:
+            if not (rec["equal"] and rec["backend"] == backend
+                    and rec["launches"].get("ungrouped", 0) > 0):
+                raise AssertionError(f"multihost {backend}: {rec}")
+        log(f"[multihost] {backend} x {world}: " + json.dumps(recs))
+        records[backend] = recs
+    return records
 
 
 def check_paths(paths):
@@ -741,7 +861,13 @@ def main() -> int:
         bench, bench_launches = bench_phase(dev)
         log(f"[bench] phase {time.time() - t0:.2f} s")
         paths["pmvs"] = pmvs_phase(dev, work)
+        t0 = time.time()
+        meshes = mesh_phase(dev, work, paths["rgb"])
+        log(f"[mesh] phase {time.time() - t0:.2f} s")
     check_paths(paths)
+    t0 = time.time()
+    multihost_phase()
+    log(f"[multihost] phase {time.time() - t0:.2f} s")
     t0 = time.time()
     k1_batches = path_batch_phase(dev, paths["rgb"]["batches"]["ungrouped"])
     log(f"[batches] phase {time.time() - t0:.2f} s")
@@ -772,6 +898,12 @@ def main() -> int:
                          floor_ms=r["floor_ms"])
         if form == "ungrouped":
             entry["path_batches"] = k1_batches
+        if form in ("ungrouped", "grouped"):  # per view shard on the mesh paths
+            entry["mesh_launches"] = {
+                name: {"total": m["launches"][form], "per_view_shard": {
+                    k.split("/")[0]: v["launches"]
+                    for k, v in m["view_shards"]["calls"].items() if k.endswith("/" + form)}}
+                for name, m in meshes.items()}
         if "gauntlet_windows" in r:  # K3u
             entry["gauntlet_windows"] = {k: r["gauntlet_windows"][k] for k in (
                 "windows", "ms", "bound_ms", "plan", "floor_ms")}

@@ -2,6 +2,7 @@
 
     python -m mvskit_tpu_torch <prefix> [--device cuda|cpu]
     python -m mvskit_tpu_torch <prefix> --filter-only --resume-iter 1
+    python -m mvskit_tpu_torch <prefix> --device cpu --mesh 1,2,2
 
 Same dataset directory contract and outputs as ``python -m mvskit_tpu``.
 ``--device`` defaults to ``cuda`` and never falls back to the CPU.
@@ -53,10 +54,27 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--strategy", default=None, choices=("pm_image", "pmvs"),
                    help="propagation strategy (reference live path "
                         "pm_image, or the PMVS-style expansion)")
+    p.add_argument("--mesh", default=None, type=parse_mesh, metavar="DP,VIEW,TILE",
+                   help="device mesh shape, e.g. 1,2,2: dp deals the gauntlet's "
+                        "chunks to devices, view shards the pyramid planes, tile "
+                        "shards the cell-grid rows; on cuda it takes distinct "
+                        "cards and raises where there are fewer")
     p.add_argument("--report", default=None,
                    help="write a JSON run report (stage seconds, alive "
                         "counts, filter kills) to this path")
     return p
+
+
+def parse_mesh(spec: str):
+    """DP,VIEW,TILE, each >= 1 (JAX cli.py:68-72, as an argparse type:
+    a bad value is a usage error, exit 2, not a bare ValueError)."""
+    try:
+        parts = [int(x) for x in spec.split(",")]
+    except ValueError:
+        parts = []
+    if len(parts) != 3 or any(x < 1 for x in parts):
+        raise argparse.ArgumentTypeError(f"--mesh wants DP,VIEW,TILE >= 1, got {spec!r}")
+    return parts
 
 
 # flag -> MVSConfig field (the JAX CLI's overrides, cli.py:87-102)
@@ -82,6 +100,8 @@ def main(argv=None) -> int:
     for flag, field in OVERRIDES:
         if getattr(args, flag) is not None:
             setattr(cfg, field, getattr(args, flag))
+    if args.mesh is not None:
+        cfg.mesh_dp, cfg.mesh_view, cfg.mesh_tile = args.mesh
     print(cfg.summary(), file=sys.stderr)
 
     engine = PMMVS(cfg, device=args.device,

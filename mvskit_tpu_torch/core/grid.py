@@ -77,15 +77,23 @@ def _fill_slots(
     csize: int,
     capacity: int,
     row_limit: Optional[int] = None,
+    row_start: int = 0,
+    row_count: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Segmented per-cell top-K by NCC over (patch, list-entry) pairs.
 
     `row_limit` declares that every alive table row index is below it
     (the compacted-table invariant): the pair sort then runs over
     row_limit * M pairs instead of capacity * M, with the same result.
-    Returns (slots[n, gh, gw, capacity], evicted[N])."""
+    `row_start` / `row_count` restrict the build to a window of cell
+    rows (one tile of parallel/tiles.py; JAX grid.py:92-131): pairs
+    landing outside it are dropped and the slots cover only its rows,
+    each cell as in a full build (cells are disjoint, the sort stable).
+    Returns (slots[n, row_count, gw, capacity], evicted[N])."""
     n = scene.n_images
     gw, gh = grid_dims(scene, level, csize)
+    if row_count is None:
+        row_count = gh
     N = table.capacity
     R = N if row_limit is None else min(row_limit, N)
     lists = lists[:R]
@@ -94,9 +102,11 @@ def _fill_slots(
 
     cx, cy, valid = patch_cells(scene, table.coord[:R], lists, level, csize)
     valid = valid & table.alive[:R].unsqueeze(1)
+    cy = cy - row_start
+    valid = valid & (cy >= 0) & (cy < row_count)
     img = lists.clamp(min=0)
-    nkeys = n * gh * gw
-    key = (img * gh + cy) * gw + cx
+    nkeys = n * row_count * gw
+    key = (img * row_count + cy) * gw + cx
     key = torch.where(valid, key, torch.full_like(key, nkeys)).reshape(-1)
     ncc = table.ncc[:R].unsqueeze(1).expand(R, M).reshape(-1)
     pidx = torch.arange(R, dtype=torch.int32, device=dev).unsqueeze(1).expand(R, M).reshape(-1)
@@ -121,7 +131,7 @@ def _fill_slots(
     dest = torch.where(in_slot, skey.long() * capacity + rank,
                        torch.full_like(rank, nkeys * capacity))
     slots_flat[dest] = torch.where(in_slot, spidx, torch.full_like(spidx, -1))
-    slots = slots_flat[:-1].reshape(n, gh, gw, capacity)
+    slots = slots_flat[:-1].reshape(n, row_count, gw, capacity)
 
     over = (skey < nkeys) & (rank >= capacity)
     evicted = torch.zeros(N, dtype=torch.int32, device=dev)
@@ -139,13 +149,18 @@ def pow2_limit(n: int, cap: int) -> int:
 
 def build_depth_maps(
     scene: Scene, table: PatchTable, level: int, csize: int,
-    row_limit: Optional[int] = None,
+    row_limit: Optional[int] = None, row_start: int = 0,
+    row_count: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Z-buffer rebuild (filter.cpp:580-626): every alive patch projects
     into EVERY image; its optical-axis depth updates the floor/ceil cell
-    quad. Returns (depth[n, gh, gw], depth_idx)."""
+    quad. `row_start` / `row_count` restrict it to a window of cell rows
+    (exact there: a cell's minimum only involves pairs that target it).
+    Returns (depth[n, row_count, gw], depth_idx)."""
     n = scene.n_images
     gw, gh = grid_dims(scene, level, csize)
+    if row_count is None:
+        row_count = gh
     cap = table.capacity
     N = cap if row_limit is None else min(row_limit, cap)
     dev = table.coord.device
@@ -164,11 +179,13 @@ def build_depth_maps(
     depth = coord @ scene.cams.oaxis.T  # [N, n]
 
     base_valid = pvalid & table.alive[:N].unsqueeze(1)
-    ncells = n * gh * gw
+    ncells = n * row_count * gw
     dest_l, ok_l = [], []
     for qx, qy in ((x0, y0), (x1, y0), (x0, y1), (x1, y1)):
-        ok = base_valid & (qx >= 0) & (qx < gw) & (qy >= 0) & (qy < gh)
-        d = (ids.unsqueeze(0) * gh + qy) * gw + qx
+        qyl = qy - row_start
+        ok = (base_valid & (qx >= 0) & (qx < gw) & (qy >= 0) & (qy < gh)
+              & (qyl >= 0) & (qyl < row_count))
+        d = (ids.unsqueeze(0) * row_count + qyl) * gw + qx
         dest_l.append(torch.where(ok, d, torch.full_like(d, ncells)))
         ok_l.append(ok)
     dest4 = torch.stack(dest_l).reshape(-1).long()
@@ -188,7 +205,8 @@ def build_depth_maps(
         torch.where(win, pidx4, torch.full_like(pidx4, -1)).reshape(-1),
         reduce="amax",
     )
-    return dgrid[:-1].reshape(n, gh, gw), igrid[:-1].reshape(n, gh, gw)
+    return (dgrid[:-1].reshape(n, row_count, gw),
+            igrid[:-1].reshape(n, row_count, gw))
 
 
 def build_grid(

@@ -167,6 +167,15 @@ class Scene:
     lvl_offsets / lvl_widths / lvl_heights [L] int32 device copies of
     the static `offsets` / `widths` / `heights` tuples
     covis         optional [n, n] bool covisibility (vis.dat)
+
+    View sharding (``parallel/shard.enable_view_sharding``, JAX
+    ``image/scene.py:173-174``): ``view_mesh`` / ``view_axis`` name the
+    mesh axis the planes are sharded over, and ``view_shards`` holds one
+    ``ViewShard`` per shard this process samples (its planes on its
+    device). Every window fetch of ``ops/ncc.texs_for_views_illums``
+    then runs on the shards (``ops/ncc._sample_windows_view_sharded``).
+    ``view_group`` is the ``torch.distributed`` group whose ranks hold
+    the other shards (``parallel/multihost``), or None in one process.
     """
 
     planes: torch.Tensor
@@ -182,6 +191,10 @@ class Scene:
     offsets: Tuple[int, ...]
     max_level: int
     covis: Optional[torch.Tensor] = None
+    view_mesh: Optional[object] = None
+    view_axis: str = "view"
+    view_shards: Tuple["ViewShard", ...] = ()
+    view_group: Optional[object] = None
 
     @property
     def device(self) -> torch.device:
@@ -189,7 +202,9 @@ class Scene:
 
     @property
     def n_images(self) -> int:
-        return self.planes.shape[0]
+        # from the cameras: a multi-process view-sharded scene holds no
+        # planes of other processes' views (parallel/multihost.py)
+        return self.cams.P.shape[0]
 
     @property
     def n_illums(self) -> int:
@@ -204,6 +219,19 @@ class Scene:
 
     def height(self, level: int) -> int:
         return self.heights[level]
+
+
+@dataclasses.dataclass(frozen=True)
+class ViewShard:
+    """One shard of a view-sharded scene: its position on the view axis,
+    its first view, and a Scene of its views (planes ``[base:base +
+    count]``, cameras and level metadata replicated) on its device. On
+    the home device the planes are views of the home scene's tensors,
+    not copies."""
+
+    index: int
+    base: int
+    scene: Scene
 
 
 def pack_rgb(planes: np.ndarray) -> np.ndarray:

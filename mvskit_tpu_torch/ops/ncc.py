@@ -16,6 +16,7 @@ so the dot of two normalized rows is the reference's mean NCC dot.
 
 from __future__ import annotations
 
+import collections
 import math
 
 import torch
@@ -222,9 +223,11 @@ def texs_for_views_illums(
     idx, tl, dx2, dy2, new_level, valid = window_batch(
         scene, views, coord, normal, level, wsize, angle_threshold1,
     )
+    sample = (_sample_windows_view_sharded if scene.view_mesh is not None
+              else sample_windows_raw)
     out = []
     for il in illums:
-        tex, fit, channels = sample_windows_raw(
+        tex, fit, channels = sample(
             scene, idx, tl, dx2, dy2, new_level, wsize, il, luma, group,
         )
         out.append((normalize_tex(tex, channels, wsize * wsize), valid & fit))
@@ -276,6 +279,96 @@ def sample_windows_raw(
         wsize, illum=illum, group=group, luma=luma,
     )
     return out.reshape(T, B, out.shape[-1]), fit.reshape(T, B), 1 if luma else 3
+
+
+# per view shard (its index on the view axis) and launch form: the
+# sampler calls of the view-sharded path and their windows; and the host
+# syncs it made (one per sampler call, for the shards' window counts)
+SHARD_CALLS: collections.Counter = collections.Counter()
+SHARD_WINDOWS: collections.Counter = collections.Counter()
+SHARD_SYNCS = collections.Counter()
+
+
+def reset_shard_stats() -> None:
+    SHARD_CALLS.clear()
+    SHARD_WINDOWS.clear()
+    SHARD_SYNCS.clear()
+
+
+def _sample_windows_view_sharded(
+    scene: Scene, idx, tl, dx2, dy2, new_level, wsize: int, illum: int = 0,
+    luma: bool = False, group: int = 1,
+):
+    """sample_windows_raw on a view-sharded scene (JAX ncc.py:427-500):
+    each shard samples only the windows whose view it owns, on its own
+    plane slice with local view indices, and the results go back into
+    the home output (on idx's device) with ``index_copy_``.
+
+    The windows are compacted, not masked: JAX samples the whole batch on
+    every shard, zeroes the windows of other shards and psums k outputs
+    of the batch's size; here each shard's launch covers its own windows
+    only. A stable sort by shard keeps a shard's windows in batch order,
+    and a candidate group (`group` consecutive windows of one patch at
+    one view slot, pipeline/refine.py) is all on one shard, so the
+    compacted batch launches grouped as the whole batch would. One host
+    sync per call reads the shards' window counts. The result is bit for
+    bit the unsharded one: every window is computed alone, by the same
+    kernel or plain version.
+
+    In a multi-process scene (``view_group``) this process holds only
+    its own shards: the home output is zero outside their windows and
+    one ``all_reduce`` sum over the group completes it
+    (``parallel/multihost.all_reduce_sum``)."""
+    T, B = idx.shape
+    home = tl.device
+    k = scene.view_mesh.shape[scene.view_axis]
+    n_local = scene.n_images // k
+    if n_local * k != scene.n_images:
+        raise ValueError(f"n_images={scene.n_images} not divisible by {k} view shards")
+    flat = idx.reshape(-1)
+    shard_of = flat.long() // n_local
+    order = torch.sort(shard_of, stable=True).indices
+    counts = torch.bincount(shard_of, minlength=k)
+    form = cuda_ncc.launch_form(flat.shape[0], group, luma, False)
+    if not form.endswith("ungrouped"):
+        g = shard_of.reshape(-1, group)
+        mixed = (g != g[:, :1]).any().reshape(1)
+    else:
+        mixed = torch.zeros(1, dtype=counts.dtype, device=counts.device)
+    *counts, mixed = torch.cat([counts, mixed.to(counts.dtype)]).tolist()
+    SHARD_SYNCS["sampler"] += 1
+    if mixed:
+        raise AssertionError("a candidate group spans two view shards")
+    C = 1 if luma else 3
+    S = wsize * wsize
+    shape = (flat.shape[0], C * S)
+    multi = scene.view_group is not None
+    out = (torch.zeros if multi else torch.empty)(shape, dtype=torch.float32, device=home)
+    starts = [0]
+    for c in counts:
+        starts.append(starts[-1] + c)
+    for sh in scene.view_shards:
+        n = counts[sh.index]
+        if n == 0:
+            continue
+        rows = order[starts[sh.index]:starts[sh.index] + n]
+        dev = sh.scene.device
+        take = lambda x, r=rows: x.reshape((-1,) + x.shape[2:]).index_select(0, r).to(dev).contiguous()  # noqa: E731
+        part, _ = cuda_ncc.sample_windows(
+            sh.scene, (take(idx) - sh.base).to(torch.int32),
+            take(new_level).to(torch.int32), take(tl), take(dx2), take(dy2),
+            wsize, illum=illum, group=group, luma=luma,
+        )
+        out.index_copy_(0, rows, part.to(home))
+        key = (sh.index, cuda_ncc.launch_form(n, group, luma, False))
+        SHARD_CALLS[key] += 1
+        SHARD_WINDOWS[key] += n
+    if multi:
+        from ..parallel import multihost
+
+        multihost.all_reduce_sum(out, scene.view_group)
+    fit = torch.ones((T, B), dtype=torch.bool, device=home)
+    return out.reshape(T, B, C * S), fit, C
 
 
 def _off_ref(ok):

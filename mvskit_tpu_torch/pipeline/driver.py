@@ -27,6 +27,8 @@ from ..device import get_device
 from ..image.scene import Scene, load_scene
 from ..io import patch_io, ply
 from ..ops import sampling
+from ..parallel import shard as sh
+from ..parallel import tiles
 from . import expand as ex
 from . import filters as fl
 from . import propagate as pr
@@ -43,8 +45,6 @@ def check_supported(cfg: MVSConfig) -> None:
     unsupported = []
     if cfg.refine_grad_steps > 0:
         unsupported.append("refine_grad_steps > 0 (retired; GRADPOLISH.json)")
-    if cfg.mesh_dp * cfg.mesh_view * cfg.mesh_tile > 1:
-        unsupported.append("mesh_* > 1 (ROADMAP Queue 1 item 14)")
     if unsupported:
         raise NotImplementedError(
             "not ported to mvskit_tpu_torch yet: " + "; ".join(unsupported)
@@ -54,6 +54,9 @@ def check_supported(cfg: MVSConfig) -> None:
             f"refine_rgb_tail must be >= 0 with luma_refine, got "
             f"{cfg.refine_rgb_tail}"
         )
+    if min(cfg.mesh_dp, cfg.mesh_view, cfg.mesh_tile) < 1:
+        raise ValueError(f"mesh axes must be >= 1, got ({cfg.mesh_dp}, "
+                         f"{cfg.mesh_view}, {cfg.mesh_tile})")
 
 
 def _encode_and_write(path_prefix: str, data: Dict[str, np.ndarray],
@@ -77,17 +80,34 @@ def _encode_and_write(path_prefix: str, data: Dict[str, np.ndarray],
 
 
 class PMMVS:
-    """The PM-MVS pipeline on one device.
+    """The PM-MVS pipeline on one device, or on a mesh of devices.
 
     device: "cuda" or "cpu", explicit (``device.get_device`` raises when
     CUDA is asked for and absent). noise: the run's source of random
     numbers, an object whose ``round()`` (a pm_image round) and
     ``expand_round()`` (a pmvs round) return a ``propagate.RoundNoise``;
     by default a ``TorchNoise`` on a ``torch.Generator`` seeded with 0
-    (the JAX driver's PRNGKey(0))."""
+    (the JAX driver's PRNGKey(0)).
+
+    The mesh (cfg.mesh_dp, cfg.mesh_view, cfg.mesh_tile; JAX driver.py:
+    94-158) carries the three parallel axes of ``parallel/``:
+      dp    the gauntlet's chunks are dealt to the dp devices
+            (``propagate._gauntlet_chunked``);
+      view  the pyramid planes are sharded and every NCC window fetch
+            runs per shard (``shard.enable_view_sharding``);
+      tile  pm_image rounds run ``tiles.tiled_propagate_round`` (the
+            pmvs strategy ignores it, as the JAX driver does).
+    Its devices: `mesh_devices` (a list of the mesh's size; repeats put
+    several shards on one device), else distinct CUDA devices on cuda
+    (ValueError where there are fewer) or copies of the CPU. Every
+    sharded result equals the unsharded one bit for bit. `view_mesh`
+    view-shards over a mesh of its own (the JAX driver's legacy
+    argument); it may not come with cfg.mesh_view > 1, which would shard
+    the views twice (JAX driver.py:123-133)."""
 
     def __init__(self, cfg: MVSConfig, scene: Optional[Scene] = None,
-                 log=print, device="cuda", noise=None):
+                 log=print, device="cuda", noise=None, mesh_devices=None,
+                 view_mesh=None):
         check_supported(cfg)
         self.cfg = cfg
         self.log = log
@@ -96,6 +116,18 @@ class PMMVS:
             cfg.prefix, cfg.images, cfg.nillums, cfg.max_level,
             use_vis_data=bool(cfg.use_vis_data), device=self.device,
         )
+        self.mesh = None
+        shape = (cfg.mesh_dp, cfg.mesh_view, cfg.mesh_tile)
+        if mesh_devices is not None or cfg.mesh_dp * cfg.mesh_view * cfg.mesh_tile > 1:
+            self.mesh = sh.make_mesh(shape, sh.MESH_AXES, device=self.device,
+                                     devices=mesh_devices)
+            if cfg.mesh_view > 1:
+                self.scene = sh.enable_view_sharding(self.scene, self.mesh, "view")
+        if view_mesh is not None:
+            if cfg.mesh_view > 1:
+                raise ValueError("view_mesh= with cfg.mesh_view > 1 would shard the "
+                                 "views twice")
+            self.scene = sh.enable_view_sharding(self.scene, view_mesh)
         if noise is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(0)
@@ -143,6 +175,13 @@ class PMMVS:
             rgb_tail=cfg.refine_rgb_tail,
             n_illums=self.scene.n_illums if cfg.use_illums else 1,
         )
+
+    @property
+    def _dp_devices(self):
+        """The dp axis's devices, or None without one."""
+        if self.mesh is None or self.cfg.mesh_dp <= 1:
+            return None
+        return self.mesh.axis_devices("dp")
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -197,12 +236,18 @@ class PMMVS:
             common = dict(ncc_threshold=self.ncc_threshold,
                           ncc_threshold_before=self.ncc_threshold_before,
                           use_depth=self.depth > 0,
-                          quad_threshold=self.cfg.quad_threshold, row_limit=rl)
+                          quad_threshold=self.cfg.quad_threshold, row_limit=rl,
+                          dp_devices=self._dp_devices)
             if pmvs:
                 self.table, state, stats = ex.expand_round(
                     self.scene, self.table, state, self.noise.expand_round(), p,
                     count_threshold=self.count_threshold1, depth=self.depth,
                     **common,
+                )
+            elif self.cfg.mesh_tile > 1:
+                self.table, stats = tiles.tiled_propagate_round(
+                    self.mesh, self.scene, self.table, self.noise.round(), p,
+                    direction, **common,
                 )
             else:
                 self.table, stats = pr.propagate_round(

@@ -152,13 +152,13 @@ def expand_round(
     scene: Scene, table: PatchTable, state: ExpandState, noise: pr.RoundNoise,
     p: pr.PropagateParams, ncc_threshold, ncc_threshold_before,
     count_threshold, depth: int, use_depth: bool = True, quad_threshold=2.5,
-    row_limit: Optional[int] = None,
+    row_limit: Optional[int] = None, dp_devices=None,
 ) -> Tuple[PatchTable, ExpandState, pr.RoundStats]:
     """One PMVS-style expansion round: donors by score2 priority ->
     empty-sector candidates -> checkCounts throttle -> gauntlet ->
     updateCounts + insertion. `noise.refine` gives the gauntlet's chunk
-    draws; `row_limit` bounds the live table rows as in
-    ``propagate_round``."""
+    draws; `row_limit` bounds the live table rows and `dp_devices` deals
+    the gauntlet's chunks as in ``propagate_round``."""
     grid = gridmod.build_grid(scene, table, p.level, p.csize, p.cell_capacity,
                               row_limit=row_limit)
     table = table._replace(alive=table.alive & ~grid.evicted)
@@ -203,6 +203,7 @@ def expand_round(
     out = pr._gauntlet_chunked(
         scene, grid, table, coord, normal, images, ok, noise, p,
         ncc_threshold, ncc_threshold_before, use_depth, quad_threshold,
+        dp_devices,
     )
     counts = update_counts(scene, state.counts, out.coord, out.images,
                            out.vimages, out.ok, p.level, p.csize)

@@ -27,6 +27,7 @@ from ..core.patches import PatchTable, count_valid
 from ..geometry import camera as cam
 from ..image.scene import Scene
 from ..ops import ncc as nccops
+from ..parallel.shard import replicate
 from . import refine as rf
 from . import views as vw
 
@@ -148,13 +149,18 @@ def select_donors(scene: Scene, grid: gridmod.GridState, table: PatchTable,
 def generate_hypotheses(scene: Scene, table: PatchTable, grid: gridmod.GridState,
                         donor_pidx, donor_img, donor_cy, donor_cx, donor_ok,
                         axis: int, direction: int, jitter, p: PropagateParams,
-                        generator: Optional[torch.Generator] = None):
+                        generator: Optional[torch.Generator] = None,
+                        gate_full=None, gate_worst_ncc=None):
     """generatePatch for a donor batch (propagate.cpp:126-237): jittered
     target-cell pixel, depth transfer along the new ray, copied normal,
     view list re-projected (OOB views dropped), initial NCC; a full
     target cell additionally requires beating its worst incumbent.
     `jitter` [budget, 2] is uniform in [-0.5, 0.5); when None it is
-    drawn from `generator`. Returns (coord, normal, images, ncc0, ok)."""
+    drawn from `generator`. `gate_full` / `gate_worst_ncc` [budget]
+    supply that full-cell gate per donor (the tile-sharded round, whose
+    target cell's worst incumbent comes by halo exchange,
+    parallel/tiles.py; JAX propagate.py:144-192); else it is read from
+    `grid`. Returns (coord, normal, images, ncc0, ok)."""
     if jitter is None:
         jitter = TorchNoise(generator).jitter(axis, donor_pidx.shape[0])
     gw, gh = gridmod.grid_dims(scene, p.level, p.csize)
@@ -183,10 +189,12 @@ def generate_hypotheses(scene: Scene, table: PatchTable, grid: gridmod.GridState
         scene, images, coord, normal, p.level, p.wsize, p.tau,
         p.angle_threshold1, n_illums=p.n_illums,
     )
-    worst = grid.slots[dimg, ty.clamp(0, gh - 1).long(),
-                       tx.clamp(0, gw - 1).long(), p.cell_capacity - 1]
-    gate_full = worst >= 0
-    beats = ncc0 > table.ncc[worst.clamp(min=0).long()]
+    if gate_full is None:
+        worst = grid.slots[dimg, ty.clamp(0, gh - 1).long(),
+                           tx.clamp(0, gw - 1).long(), p.cell_capacity - 1]
+        gate_full = worst >= 0
+        gate_worst_ncc = table.ncc[worst.clamp(min=0).long()]
+    beats = ncc0 > gate_worst_ncc
     ok = donor_ok & inb & has_views & (~gate_full | beats)
     return coord, normal, images, ncc0, ok
 
@@ -304,12 +312,23 @@ def insert_patches(table: PatchTable, out: GauntletOut) -> PatchTable:
 def _gauntlet_chunked(scene, grid, table, coord, normal, images, ok,
                       noise: RoundNoise, p: PropagateParams, ncc_threshold,
                       ncc_threshold_before, use_depth,
-                      quad_threshold=2.5) -> GauntletOut:
+                      quad_threshold=2.5, dp_devices=None) -> GauntletOut:
     """Run the gauntlet over the live hypotheses, `p.chunk` at a time.
 
     Hypothesis h belongs to JAX chunk h // C and row h % C, and draws
     that chunk's noise row; dead hypotheses are not computed (their
-    outputs are zeros with ok False, as the JAX gauntlet reports them)."""
+    outputs are zeros with ok False, as the JAX gauntlet reports them).
+
+    `dp_devices` (the mesh's dp axis) deals the live chunks, whole and
+    in order, round robin to those devices: chunk i (rows live[i C:(i +
+    1) C] with their noise rows) runs on device i % dp against a copy of
+    the scene, table and grid made once per distinct device, and its
+    outputs come back to the home device in chunk order. Each chunk's
+    hypotheses are computed alone, so the result is the unsharded one
+    bit for bit. JAX's dp shards the table's rows and lets GSPMD
+    partition every stage; the port partitions this stage, which is
+    batch-parallel and the largest, and runs every other stage on the
+    home device (ROADMAP Queue 1 lists the rest)."""
     H = coord.shape[0]
     C = min(p.chunk, H)
     n_chunks = (H + C - 1) // C
@@ -332,7 +351,11 @@ def _gauntlet_chunked(scene, grid, table, coord, normal, images, ok,
     for ch in live_chunks:
         cache[ch] = noise.refine(ch, n_chunks, p.refine_rounds, C,
                                  p.refine_cands).to(dev)
-    for s in range(0, live.numel(), C):
+    devices = [dev] if not dp_devices else [torch.device(d) for d in dp_devices]
+    state = {d: (scene, grid, table) if d == dev else (
+        replicate(scene, d), replicate(grid, d), replicate(table, d))
+        for d in dict.fromkeys(devices)}
+    for i, s in enumerate(range(0, live.numel(), C)):
         rows = live[s:s + C]
         ch_of, row_of = rows // C, rows % C
         deltas = torch.empty((p.refine_rounds, rows.numel(), p.refine_cands, 3),
@@ -340,30 +363,38 @@ def _gauntlet_chunked(scene, grid, table, coord, normal, images, ok,
         for ch in torch.unique(ch_of).tolist():
             m = ch_of == ch
             deltas[:, m] = cache[ch][:, row_of[m]]
+        d = devices[i % len(devices)]
+        scn, grd, tbl = state[d]
         res = run_gauntlet(
-            scene, grid, table, coord[rows], normal[rows], images[rows],
-            ok[rows], deltas, p, ncc_threshold, ncc_threshold_before,
-            use_depth, quad_threshold,
+            scn, grd, tbl, coord[rows].to(d), normal[rows].to(d),
+            images[rows].to(d), ok[rows].to(d), deltas.to(d), p, ncc_threshold,
+            ncc_threshold_before, use_depth, quad_threshold,
         )
         for dst, src in zip(out, res):
-            dst[rows] = src
+            dst[rows] = src.to(dev)
     return out
+
+
+def _noise(noise: Optional[RoundNoise], generator) -> RoundNoise:
+    if noise is None:
+        if generator is None:
+            raise ValueError("propagate_round needs noise or a generator")
+        noise = TorchNoise(generator)
+    return noise
 
 
 def propagate_round(
     scene: Scene, table: PatchTable, noise: Optional[RoundNoise],
     p: PropagateParams, direction: int, ncc_threshold, ncc_threshold_before,
     use_depth: bool = True, quad_threshold=2.5, row_limit=None,
-    generator: Optional[torch.Generator] = None,
+    generator: Optional[torch.Generator] = None, dp_devices=None,
 ) -> Tuple[PatchTable, RoundStats]:
     """One propagation round: each donor propagates into both its x- and
     y-neighbor target cell from one shared grid build and donor
     selection (propagate.cpp:106-108). Without `noise`, the round draws
-    from `generator`."""
-    if noise is None:
-        if generator is None:
-            raise ValueError("propagate_round needs noise or a generator")
-        noise = TorchNoise(generator)
+    from `generator`. `dp_devices` deals the gauntlet's chunks to the
+    mesh's dp devices (``_gauntlet_chunked``)."""
+    noise = _noise(noise, generator)
     grid = gridmod.build_grid(scene, table, p.level, p.csize,
                               p.cell_capacity, row_limit=row_limit)
     # cap enforcement kills over-capacity patches globally
@@ -371,18 +402,34 @@ def propagate_round(
     table = table._replace(alive=table.alive & ~grid.evicted)
 
     donors = select_donors(scene, grid, table, p.donor_budget, p.donor_policy)
-    parts = [
-        generate_hypotheses(scene, table, grid, *donors, axis, direction,
-                            noise.jitter(axis, p.donor_budget).to(table.coord.device),
-                            p)
-        for axis in (0, 1)
-    ]
+    return round_from_donors(
+        scene, table, grid, donors, (None, None), noise, p, direction,
+        ncc_threshold, ncc_threshold_before, use_depth, quad_threshold,
+        dp_devices)
+
+
+def round_from_donors(scene, table, grid, donors, gates, noise: RoundNoise,
+                      p: PropagateParams, direction: int, ncc_threshold,
+                      ncc_threshold_before, use_depth, quad_threshold,
+                      dp_devices=None) -> Tuple[PatchTable, RoundStats]:
+    """A round after its grid build and donor selection: hypotheses into
+    the x- and y-neighbor cells (``gates`` gives each axis's full-cell
+    gate as (gate_full, gate_worst_ncc), or None to read `grid`), the
+    gauntlet, insertion and the round's counts."""
+    parts = []
+    for axis, gate in zip((0, 1), gates):
+        gate_full, gate_worst = (None, None) if gate is None else gate
+        parts.append(generate_hypotheses(
+            scene, table, grid, *donors, axis, direction,
+            noise.jitter(axis, p.donor_budget).to(table.coord.device), p,
+            gate_full=gate_full, gate_worst_ncc=gate_worst))
     coord, normal, images, _, ok = (
         torch.cat([pt[i] for pt in parts]) for i in range(5)
     )
     out = _gauntlet_chunked(
         scene, grid, table, coord, normal, images, ok, noise, p,
         ncc_threshold, ncc_threshold_before, use_depth, quad_threshold,
+        dp_devices,
     )
     table = insert_patches(table, out)
     stats = RoundStats(

@@ -13,6 +13,9 @@ run-time size instance, at every batch size (a ragged last tile
 included) and illumination; fused (K4) equals ungrouped bit for bit;
 every ablation switch (K5) in every launch form equals its plain version
 bit for bit.
+The view-sharded sampler on k shards of the card (each launching the
+batch's form on its compacted windows) equals the unsharded launch bit
+for bit; a mesh of more cards than there are raises.
 The pipeline on the card against the same pipeline on the CPU, fed the
 same random numbers: alive counts within 3 % (reductions sum in another
 order on the card, which can flip a near-tie accept/reject)."""
@@ -413,3 +416,47 @@ def test_pipeline_on_card_tracks_cpu(card, tmp_path):
             assert cuda_ncc.LAUNCHES["ungrouped"] > 0 and cuda_ncc.LAUNCHES["grouped"] > 0
     for a, b in zip(alive["cpu"], alive["cuda"]):
         assert abs(a - b) <= 0.03 * a, alive
+
+
+@pytest.mark.parametrize("k", [3, 6])
+@pytest.mark.parametrize("luma", [False, True])
+@pytest.mark.parametrize("group", [1, 32])
+def test_view_sharded_launch_every_form_bitwise(card, k, luma, group):
+    """The view-sharded sampler (ops/ncc._sample_windows_view_sharded) on
+    k shards of 6 views, all on the card: each shard owning a used view
+    launches the batch's form once on its compacted windows, and the
+    result equals the unsharded launch bit for bit."""
+    from mvskit_tpu_torch.ops import cuda_ncc, ncc
+    from mvskit_tpu_torch.parallel import shard as sh
+    from mvskit_tpu_torch.utils import synthetic
+
+    _, _, scene = synthetic.plane_scene(n_views=6, width=160, height=120, device=card)
+    idx, lvl, tl, dx, dy = _windows(scene)  # views 0, 1, 2 of 64 x 32 windows
+    T = 3
+    args = (idx.reshape(T, -1), tl.reshape(T, -1, 2), dx.reshape(T, -1, 2),
+            dy.reshape(T, -1, 2), lvl.reshape(T, -1), WSIZE, 0, luma, group)
+    want, _, _ = ncc.sample_windows_raw(scene, *args)
+    vs = sh.enable_view_sharding(scene, sh.make_mesh(k, "view", devices=[card] * k))
+    cuda_ncc.reset_launches()
+    ncc.reset_shard_stats()
+    got, fit, _ = ncc._sample_windows_view_sharded(vs, *args)
+    torch.cuda.synchronize()
+    form = cuda_ncc.launch_form(idx.shape[0], group, luma, False)
+    shards = {v // (6 // k) for v in range(T)}
+    assert cuda_ncc.LAUNCHES == dict(_no_launches(), **{form: len(shards)})
+    assert {s for s, _ in ncc.SHARD_CALLS} == shards and ncc.SHARD_SYNCS["sampler"] == 1
+    assert fit.all() and torch.equal(_bits(got), _bits(want))
+
+
+def test_cli_mesh_needs_distinct_cards(card, tmp_path):
+    """--device cuda --mesh takes distinct cards: with fewer than the
+    mesh's size it raises ValueError naming the count, and never shares
+    a card silently."""
+    from mvskit_tpu_torch import cli
+    from mvskit_tpu_torch.utils import synthetic
+
+    synthetic.write_dataset(str(tmp_path), n_views=4, width=96, height=64, n_seeds=16)
+    have = torch.cuda.device_count()
+    with pytest.raises(ValueError, match=f"have {have}"):
+        cli.main([str(tmp_path), "--device", "cuda", "--mesh", f"1,1,{have + 1}",
+                  "--no-snapshots"])

@@ -1,8 +1,9 @@
 """The port stands alone: every submodule of mvskit_tpu_torch and the
-CLI's --help run in a subprocess where `import jax` fails, and neither
-the port nor chip_smoke.py imports any module of mvskit_tpu. Also the
-explicit device helper, the unported options' NotImplementedError and
-the options this port covers."""
+CLI's --help run in a subprocess where `import jax` fails (the walk
+reaches parallel/* and the e2e and scaling tools), and neither the port
+nor chip_smoke.py imports any module of mvskit_tpu. Also the explicit
+device helper, the unported options' NotImplementedError and the
+options this port covers (the device mesh among them)."""
 
 import ast
 import os
@@ -33,6 +34,9 @@ def test_import_all_submodules_without_jax():
         "assert not [k for k in sys.modules\n"
         "            if k == 'mvskit_tpu' or k.startswith('mvskit_tpu.')]\n"
         "assert sys.modules['jax'] is None\n"
+        "need = {'mvskit_tpu_torch.parallel.' + m for m in ('shard', 'tiles', 'multihost')}\n"
+        "need |= {'mvskit_tpu_torch.tools.' + m for m in ('e2e_run', 'bench_scaling')}\n"
+        "assert need <= set(names), need - set(names)\n"
         "print(len(names))\n"
     )
     res = _run(code=code)
@@ -48,10 +52,9 @@ def test_cli_help_without_jax():
     res = _run(code=code)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "--device" in res.stdout and "--filter-only" in res.stdout
-    assert "--mesh" not in res.stdout
     for flag in ("--iterations", "--prop-rounds", "--no-snapshots", "--max-patches",
                  "--donor-budget", "--chunk", "--refine-rounds", "--refine-cands",
-                 "--strategy"):
+                 "--strategy", "--mesh"):
         assert flag in res.stdout, flag
 
 
@@ -106,7 +109,6 @@ def test_get_device_is_explicit():
 
 @pytest.mark.parametrize("field,value", [
     ("refine_grad_steps", 2),
-    ("mesh_view", 2),
 ])
 def test_unported_options_raise(field, value):
     from mvskit_tpu_torch.config import MVSConfig
@@ -123,6 +125,7 @@ def test_unported_options_raise(field, value):
     ("luma_refine", True),
     ("nillums", 3),
     ("strategy", "pmvs"),
+    ("mesh_view", 2),
 ])
 def test_ported_options_accepted(field, value):
     from mvskit_tpu_torch.config import MVSConfig
