@@ -18,11 +18,16 @@ Phases (any failure raises and the process exits non-zero):
      forms also against the ungrouped / grouped launch and the ungrouped
      forms against the grouped launch, with CUDA-event timings and each
      kernel's bound (least time for its bytes and operations on an
-     H100); the window kernel's records (K1, K2, K3u, K3g) also carry
-     their launch plan (tile, persistent grid, stages, store path) and
-     ptxas's numbers, each K5 switch's time on the same windows, the
-     grouped ones K4's time and the ungrouped launch's plan and time,
-     the ungrouped ones the timing floors beside theirs;
+     H100); every record (K1, K2, K3u, K3g, K4) also carries its
+     launch plan (tile, persistent grid, stages, store path) and
+     ptxas's numbers, the grouped and fused ones each K5 switch's time on
+     the same windows, the grouped ones K4's time and the ungrouped
+     launch's plan and time, the ungrouped ones the timing floors beside
+     theirs; K4 also runs the edge lattices of
+     tools/bench_kernel.edge_windows (NaN, +-inf, negative coordinates,
+     ones on integers and past w - 2) at 7 x 7 and 5 x 5 under every K5
+     switch, beside the grouped and ungrouped launches, each bit for bit
+     against its plain version;
   3. RGB main path: writes the 16 x 640x480, 4096-seed plane dataset and
      runs `mvskit_tpu_torch.cli.main` with the default config (3
      iterations, 8 rounds, 6 x 32 RGB search, 2^18-row table);
@@ -108,22 +113,25 @@ KERNELS = (
     ("sample_windows_fused", "fused", "rgb", "grouped", N_CANDS, True),
     ("sample_windows_luma_fused", "luma_fused", "luma", "grouped", N_CANDS, True),
 )
-# the kernel instance (ptxas name) behind each record, and every
-# instance the script launches: WS = 7 and every K5 switch on the
-# grouped forms (bench path), the normal switch on the others. The
-# ungrouped and grouped forms of a channel mode are one instance of the
-# persistent window kernel (K1 and K2 window_kernel<3, 7, 0>, K3u and
-# K3g window_kernel<1, 7, 0>), launched with different tile plans.
+# the kernel instance (ptxas name: kernel<C, WS, switch>) behind each
+# record. The ungrouped and grouped forms of a channel mode are one
+# instance of the persistent window kernel (K1 and K2 window_kernel<3, 7,
+# 0>, K3u and K3g window_kernel<1, 7, 0>), launched with different tile
+# plans; K4 is fused_kernel<C, WS, switch>.
 INSTANCE = {
     "sample_windows_ungrouped": f"window_kernel<3, {WSIZE}, 0>",
     "sample_windows_grouped": f"window_kernel<3, {WSIZE}, 0>",
     "sample_windows_luma_ungrouped": f"window_kernel<1, {WSIZE}, 0>",
     "sample_windows_luma_grouped": f"window_kernel<1, {WSIZE}, 0>",
-    "sample_windows_fused": "sample_windows_fused_kernel<3, 0>",
-    "sample_windows_luma_fused": "sample_windows_fused_kernel<1, 0>",
+    "sample_windows_fused": f"fused_kernel<3, {WSIZE}, 0>",
+    "sample_windows_luma_fused": f"fused_kernel<1, {WSIZE}, 0>",
 }
-LAUNCHED_INSTANCES = tuple(dict.fromkeys(INSTANCE.values())) + tuple(
-    f"window_kernel<{c}, {WSIZE}, {a}>" for c in (3, 1) for a in range(1, 6))
+# every instance the script launches: both kernels, both channel modes,
+# WS = 7 and the run-time size instance (WS = 0, the edge lattices at
+# EDGE_WSIZE), every K5 switch
+EDGE_WSIZE = 5
+LAUNCHED_INSTANCES = tuple(f"{k}<{c}, {ws}, {a}>" for k in ("window_kernel", "fused_kernel")
+                           for c in (3, 1) for ws in (WSIZE, 0) for a in range(6))
 
 
 def log(*a):
@@ -356,9 +364,10 @@ def ungrouped_extras(rec, scene, wset, mode, out, ptxas):
     rec["floor_ms"] = floor_times(scene, wset, mode, out)
 
 
-def ablation_times(scene, wset, mode, group):
-    """Device ms of the launch form of `group` under each K5 switch on
-    the same windows: what each dropped stage of the work costs."""
+def ablation_times(scene, wset, mode, group, fused=False):
+    """Device ms of the launch form of `group` (and `fused`) under each
+    K5 switch on the same windows: what each dropped stage of the work
+    costs."""
     from mvskit_tpu_torch.ops import cuda_ncc
     from mvskit_tpu_torch.tools.bench_kernel import cuda_time_ms
 
@@ -367,9 +376,41 @@ def ablation_times(scene, wset, mode, group):
     for ablate in cuda_ncc.ABLATIONS[1:]:
         def kern():
             return cuda_ncc.sample_windows(scene, idx, lvl, tl, dx, dy, WSIZE, group=group,
-                                           luma=mode == "luma", ablate=ablate)[0]
+                                           luma=mode == "luma", fused=fused,
+                                           ablate=ablate)[0]
         times[ablate] = min(cuda_time_ms(kern, 7) for _ in range(2))
     return times
+
+
+def edge_check(scene, mode):
+    """K4 of one channel mode on the edge lattices of
+    tools/bench_kernel.edge_windows (NaN, +-inf, -0.0, negative
+    coordinates, ones on integers, on w - 2 and past it, denormal, past
+    int32), at WSIZE (compiled) and EDGE_WSIZE (run-time size), in groups
+    of N_CANDS under every K5 switch, and the grouped and ungrouped
+    launches of the window kernel beside it: each bit for bit against
+    its plain version. Returns the record."""
+    from mvskit_tpu_torch.ops import cuda_ncc
+    from mvskit_tpu_torch.tools.bench_kernel import bits_equal, edge_windows
+
+    luma = mode == "luma"
+    plain_fn = cuda_ncc.sample_windows_luma_plain if luma else cuda_ncc.sample_windows_plain
+    args = edge_windows(scene, 64 * N_CANDS)
+    launches = 0
+    for wsize in (WSIZE, EDGE_WSIZE):
+        for ablate in cuda_ncc.ABLATIONS:
+            plain = plain_fn(scene, *args, wsize, ablate=ablate)
+            for group, fused in ((N_CANDS, True), (N_CANDS, False), (1, False)):
+                out = cuda_ncc.sample_windows(scene, *args, wsize, group=group, luma=luma,
+                                              fused=fused, ablate=ablate)[0]
+                launches += 1
+                if not bits_equal(out, plain):
+                    raise AssertionError(f"{mode} edge lattices, wsize {wsize}, group {group}, "
+                                         f"fused {fused}, ablate {ablate!r}: kernel differs "
+                                         f"from its plain version")
+    return {"windows": args[0].shape[0], "wsizes": [WSIZE, EDGE_WSIZE],
+            "switches": list(cuda_ncc.ABLATIONS), "launches": launches,
+            "bitwise_equal_plain": True}
 
 
 def kernel_phase(dev):
@@ -379,6 +420,7 @@ def kernel_phase(dev):
     from mvskit_tpu_torch.ops import _build, cuda_ncc
     from mvskit_tpu_torch.tools.bench_kernel import bits_equal
 
+    _build.load_library()  # built before its ptxas report is read
     ptxas = _build.ptxas_report()
     scene, sets = window_sets(dev)
     card = card_line()
@@ -394,6 +436,11 @@ def kernel_phase(dev):
             rec["grouped_ms_same_windows"] = grp["ms"]
             rec["vs_" + base] = rec["ms"] / records[base]["ms"]
             rec["vs_grouped_same_call"] = rec["ms"] / grp["ms"]
+            rec["plan"] = cuda_ncc.fused_plan(rec["windows"], WSIZE, group, mode == "luma")
+            rec["ptxas"] = ptxas.get(INSTANCE[name])
+            rec["ablate_ms_same_windows"] = ablation_times(scene, sets[wset], mode, group,
+                                                           fused=True)
+            rec["edge_lattices"] = edge_check(scene, mode)
             del out_g
         elif group > 1:  # the grouped launch equals the ungrouped one
             ung, out_u = measure(name + " (ungrouped launch)", scene, sets[wset], mode, 1)
@@ -888,9 +935,12 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         }
-        if "plan" in r:  # the window kernel's forms, K1, K2, K3u and K3g
+        if "plan" in r:  # every form: K1, K2, K3u, K3g and K4
             entry.update(windows=r["windows"], bound_share=r["bound_share"], plan=r["plan"],
                          ptxas=r["ptxas"])
+        if fused:  # K4: beside the grouped launch, and on the edge lattices
+            entry.update(grouped_ms_same_windows=r["grouped_ms_same_windows"],
+                         edge_lattices=r["edge_lattices"])
         if "fused_ms_same_windows" in r:  # K2 and K3g
             entry["fused_ms_same_windows"] = r["fused_ms_same_windows"]
         if "bitwise_equal_grouped" in r and not fused:  # K1 and K3u

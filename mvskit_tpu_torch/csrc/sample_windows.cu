@@ -109,15 +109,37 @@
 // (pallas_ncc.py:323-370), in both channel modes. It computes the same
 // function as the grouped forms; on the TPU it evaluates a whole group
 // with one matmul over concatenated tent weights and one K-row store.
-// Here it is one block per group, C = 3 (RGB) or C = 1 (luma)
-// channels: the group's window parameters and level metadata are staged
-// in shared memory, every tap is read from L2 with __ldg, and the
-// group's group * C * S outputs are assembled in dynamic shared memory
-// (18,816 B for 32 RGB windows of 7 x 7, 75,264 B at group 128) and
-// written as one contiguous run of 16-byte float4 stores, Hopper's
-// counterpart of the TPU's one store per group. It uses the same sample
-// routines, so it equals the plain version and the grouped launch bit
-// for bit. Bound on the H100: the stores, as the grouped forms.
+// Here it is fused_kernel<C, WS, ABL>, a template of its own (K2 and K3g
+// are not changed by it). Like the other forms it is held back by issued
+// instructions and load latency rather than bytes, so its design cuts
+// instructions per sample and keeps more loads in flight per thread:
+//   * persistent blocks over groups: min(groups, SMs x resident blocks)
+//     blocks walk the groups with stride gridDim.x; the next group's
+//     parameters are copied with cp.async into a double buffer while this
+//     group samples, and each group's group * C * S outputs are assembled
+//     in one of two shared-memory stages and leave as one TMA bulk store
+//     (Hopper's counterpart of the TPU's one store per group), which
+//     overlaps the next group's work; float stores where a group's run
+//     is not 16-byte sized (group 2 luma at 7 x 7: 392 B); one stage where
+//     two pass the card's shared memory, and a size whose one stage passes
+//     it (RGB group 128 at 15 x 15) is refused with the launch's error;
+//   * threads over lattice columns (member m, column i), two columns a
+//     thread: a column's member base, level size and six lattice floats
+//     are read once, and so is its partial sum tl + d1 * i, and j is the
+//     index of an unrolled loop (WS = 7 compiled for its size, WS = 0 for
+//     every other size, one column at a time in passes of 8 luma or 4 RGB
+//     samples), so no sample does an integer division or re-reads its
+//     member; all tap loads of a thread's two columns (14 luma, 56 RGB)
+//     are issued before any of their arithmetic. (One thread per lattice
+//     row, the first design, measured the same for luma and 4 % slower
+//     for RGB; a column's lanes read neighbouring pixels; PERF.md §6.)
+//   * exact conversions on the FP32 pipe: a tap byte becomes a float by
+//     one PRMT into the mantissa of 2^23 and one subtraction (byte_f32),
+//     and the tap origin is clamped in float and truncated by an add of
+//     1.5 * 2^23 rounded toward zero (tap_origin), in place of byte_at's
+//     shift, mask and I2F and bilinear_frac's F2I and I2F. Both give the
+//     same values as the window kernel's routines for every input, so K4
+//     equals the plain version and the grouped launch bit for bit.
 //
 // Ablation switches (K5): replace _make_kernel's `ablate` settings
 // (pallas_ncc.py:194-200, 233, 254, 271, 289, 384, 397), measurement
@@ -155,7 +177,6 @@
 #define MVS_MAX_GROUP 128
 #define MVS_THREADS 256
 #define MVS_KC 2  // window kernel: samples per thread per pass
-#define MVS_STATIC_SMEM_LIMIT 49152
 
 // ablation switches, in the order of ops/cuda_ncc.py::ABLATIONS
 enum Ablate {
@@ -203,18 +224,6 @@ __device__ __forceinline__ void level_meta(const LevelMeta& m, int l, int& off,
 __device__ __forceinline__ float lattice(float t, float d1, float d2,
                                          float i, float j) {
   return __fadd_rn(__fadd_rn(t, __fmul_rn(d1, i)), __fmul_rn(d2, j));
-}
-
-// sample s's position: its lattice point, or the origin under nowx
-template <int ABL>
-__device__ __forceinline__ void sample_xy(float tx, float ty, float dxx,
-                                          float dxy, float dyx, float dyy,
-                                          int s, int wsize, float& x,
-                                          float& y) {
-  const float fi = ABL == ABL_NOWX ? 0.0f : (float)(s % wsize);
-  const float fj = ABL == ABL_NOWX ? 0.0f : (float)(s / wsize);
-  x = lattice(tx, dxx, dyx, fi, fj);
-  y = lattice(ty, dxy, dyy, fi, fj);
 }
 
 // one plane word; nodma reads none
@@ -313,21 +322,6 @@ __device__ __forceinline__ void store_rgb(float* __restrict__ row, int s,
   row[2 * S + s] = b;
 }
 
-// RGB sample s of a window, every tap from global memory
-template <int ABL>
-__device__ __forceinline__ void rgb_at(const int* __restrict__ base, int w,
-                                       int h, float tx, float ty, float dxx,
-                                       float dxy, float dyx, float dyy, int s,
-                                       int wsize, float& r, float& g,
-                                       float& b) {
-  float x, y;
-  sample_xy<ABL>(tx, ty, dxx, dxy, dyx, dyy, s, wsize, x, y);
-  const Taps t = bilinear_taps(x, y, w, h);
-  const int* p = base + t.ly * w + t.lx;
-  rgb_sample<ABL>(t, tap<ABL>(p), tap<ABL>(p + 1), tap<ABL>(p + w),
-                  tap<ABL>(p + w + 1), r, g, b);
-}
-
 // one luma sample from its packed quad, in the plain version's order
 template <int ABL>
 __device__ __forceinline__ float luma_sample(int v, const Frac& f) {
@@ -342,54 +336,6 @@ __device__ __forceinline__ float luma_sample(int v, const Frac& f) {
   r = __fadd_rn(r, __fmul_rn(__fmul_rn(y01, f.dx0), f.dy1));
   r = __fadd_rn(r, __fmul_rn(__fmul_rn(y11, f.dx1), f.dy1));
   return r;
-}
-
-// luma sample s of a window whose plane base, level size and lattice
-// are given
-template <int ABL>
-__device__ __forceinline__ float luma_at(const int* __restrict__ base, int w,
-                                         int h, float tx, float ty, float dxx,
-                                         float dxy, float dyx, float dyy,
-                                         int s, int wsize) {
-  float x, y;
-  sample_xy<ABL>(tx, ty, dxx, dxy, dyx, dyy, s, wsize, x, y);
-  const Frac f = bilinear_frac(x, y, w, h);
-  return luma_sample<ABL>(tap<ABL>(base + f.ly * w + f.lx), f);
-}
-
-// a group's window parameters and level metadata in shared memory (the
-// fused form): per member its plane base offset (in ints), level width
-// and height, and the six lattice floats
-struct GroupParams {
-  int64_t base[MVS_MAX_GROUP];
-  int w[MVS_MAX_GROUP], h[MVS_MAX_GROUP];
-  float lat[6][MVS_MAX_GROUP];
-};
-
-__device__ __forceinline__ void stage_group(GroupParams& g, const LevelMeta& meta,
-                                            int total, int ni, int illum,
-                                            const int* __restrict__ idx,
-                                            const int* __restrict__ lvl,
-                                            const float* __restrict__ tl,
-                                            const float* __restrict__ dx,
-                                            const float* __restrict__ dy,
-                                            int64_t b0, int group) {
-  if (threadIdx.x < group) {
-    const int m = threadIdx.x;
-    const int64_t b = b0 + m;
-    int off, w, h;
-    level_meta(meta, clamp_level(lvl[b], meta.n), off, w, h);
-    g.base[m] = (int64_t)(idx[b] * ni + illum) * total + off;
-    g.w[m] = w;
-    g.h[m] = h;
-    g.lat[0][m] = tl[2 * b];
-    g.lat[1][m] = tl[2 * b + 1];
-    g.lat[2][m] = dx[2 * b];
-    g.lat[3][m] = dx[2 * b + 1];
-    g.lat[4][m] = dy[2 * b];
-    g.lat[5][m] = dy[2 * b + 1];
-  }
-  __syncthreads();
 }
 
 // ---- K1, K2, K3u, K3g: the persistent window kernel ----
@@ -654,51 +600,278 @@ window_kernel(const int* __restrict__ planes, LevelMeta meta, int total, int ni,
   if (tma && threadIdx.x == 0) bulk_wait_all();
 }
 
-// K4: C = 3 (RGB, rows [C * S] channel-major) or C = 1 (luma). The
-// group's outputs are assembled in dynamic shared memory and stored as
-// one contiguous run of float4s.
-template <int C, int ABL>
-__global__ void __launch_bounds__(MVS_THREADS)
-sample_windows_fused_kernel(const int* __restrict__ planes, LevelMeta meta,
-                            int total, int ni, int illum,
-                            const int* __restrict__ idx,
-                            const int* __restrict__ lvl,
-                            const float* __restrict__ tl,
-                            const float* __restrict__ dx,
-                            const float* __restrict__ dy,
-                            float* __restrict__ out, int wsize, int group) {
-  extern __shared__ float4 s_out4[];  // group * C * S floats
-  float* s_out = reinterpret_cast<float*>(s_out4);
-  __shared__ GroupParams g;
-  const int S = wsize * wsize;
-  const int64_t b0 = (int64_t)blockIdx.x * group;
-  stage_group(g, meta, total, ni, illum, idx, lvl, tl, dx, dy, b0, group);
+// ---- K4: the fused form, persistent groups, threads over lattice columns ----
 
-  for (int p = threadIdx.x; p < group * S; p += blockDim.x) {
-    const int m = p / S;
-    const int s = p - m * S;
-    const int* base = planes + g.base[m];
-    if (C == 1) {
-      s_out[p] = luma_at<ABL>(base, g.w[m], g.h[m], g.lat[0][m], g.lat[1][m],
-                              g.lat[2][m], g.lat[3][m], g.lat[4][m],
-                              g.lat[5][m], s, wsize);
-    } else {
-      float r, gg, bl;
-      rgb_at<ABL>(base, g.w[m], g.h[m], g.lat[0][m], g.lat[1][m], g.lat[2][m],
-                  g.lat[3][m], g.lat[4][m], g.lat[5][m], s, wsize, r, gg, bl);
-      store_rgb(s_out + m * C * S, s, S, r, gg, bl);
+// Exact conversions on the FP32 pipe, for K4 only. A float in [2^23,
+// 2^24) has an ulp of 1, so its low mantissa bits hold an integer.
+#define MVS_TWO23 8388608.0f    // 2^23, bits 0x4B000000
+#define MVS_MAGIC 12582912.0f   // 1.5 * 2^23, bits 0x4B400000
+#define MVS_COL_PASS 8          // K4, run-time size: samples of a column per pass
+
+// byte k of v as a float: one PRMT puts the byte into the mantissa of
+// 2^23 (bits 0x4B0000bb), and subtracting 2^23 leaves the byte exactly:
+// byte_at's value without its shift, mask and I2F
+__device__ __forceinline__ float byte_f32(int v, int k) {
+  return __fsub_rn(__int_as_float(__byte_perm(v, 0x4B000000, 0x7440 + k)), MVS_TWO23);
+}
+
+// The tap origin of coordinate x on a level whose last origin is `lim`
+// (w - 2 as a float): l = min(max(trunc(x), 0), w - 2), equal to
+// bilinear_frac's for every float x (NaN and -inf give 0, +inf gives
+// w - 2). The clamp runs in float first (fmaxf(NaN, 0) is 0, as
+// __float2int_rz(NaN) is), so xc lies in [0, w - 2] and trunc(xc) =
+// floor(xc); then t = xc + 1.5 * 2^23 rounded toward zero is 1.5 * 2^23 +
+// floor(xc) for any xc in [-2^22, 2^22): t less 1.5 * 2^23 is l as a
+// float (returned), and t's bits (`tb`) are 0x4B400000 + l. (1.5 * 2^23
+// rather than 2^23 keeps a level narrower than 2 pixels exact too: there
+// w - 2 < 0, and so is the plain version's origin.)
+__device__ __forceinline__ float tap_origin(float x, float lim, unsigned& tb) {
+  const float t = __fadd_rz(fminf(fmaxf(x, 0.0f), lim), MVS_MAGIC);
+  tb = __float_as_uint(t);
+  return __fsub_rn(t, MVS_MAGIC);
+}
+
+// A group's member table for K4 in shared memory: per member its plane
+// base (in ints), its last tap origins (w - 2, h - 2) as floats and its
+// level width.
+struct FusedMembers {
+  int64_t* base;  // [G]
+  float2* lim;    // [G]
+  int* w;         // [G]
+};
+
+// the member table of the G windows whose raw parameters (laid out as
+// copy_params lays them) are in `raw`; member m reads plane row
+// idx[m] * ni + illum
+__device__ __forceinline__ void resolve_fused(const int* raw, int G, const FusedMembers& t,
+                                              const LevelMeta& meta, int total, int ni,
+                                              int illum) {
+  const int* idx = raw;
+  const int* lvl = raw + G;
+  for (int m = threadIdx.x; m < G; m += blockDim.x) {
+    int off, w, h;
+    level_meta(meta, clamp_level(lvl[m], meta.n), off, w, h);
+    t.base[m] = (int64_t)(idx[m] * ni + illum) * total + off;
+    t.lim[m] = make_float2((float)(w - 2), (float)(h - 2));
+    t.w[m] = w;
+  }
+}
+
+// K4's lattice columns: column c of a group is member m = c / ws,
+// lattice column i = c - m * ws (samples s = j * ws + i, j = 0 .. ws - 1).
+// A thread takes fused_cols columns at a time (MVS_FUSED_COLS at WS = 7;
+// one at the run-time size, in passes of MVS_COL_PASS samples) and issues
+// the tap loads of all of them before any of their tap arithmetic: two
+// columns of 7 measured 0.93x (luma) and 0.96x (RGB) the time of one on
+// an H100, three and four no better (PERF.md §6). The lanes of a warp hold
+// neighbouring columns, so a load instruction of a warp reads neighbouring
+// pixels of a few image rows.
+#define MVS_FUSED_COLS 2
+
+template <int WS>
+__host__ __device__ constexpr int fused_cols() {
+  return WS > 0 ? MVS_FUSED_COLS : 1;
+}
+
+// Samples j0 .. j0 + R - 1 (those below ws) of the columns c0 + q * T,
+// q < ncol (ncol <= NCOL, T threads), into the stage. Per column the
+// member's base, level size and six lattice floats are read once, and so
+// is the column's partial sum a = tl + d1 * i; sample j lies at a + d2 *
+// j, rounded as lattice() rounds (tl + d1 * i) + d2 * j; no sample does
+// an integer division. The tap word ly * w + lx comes from the origins'
+// bits bx = 0x4B400000 + lx and by as by * w + bx - 0x4B400000 * (w +
+// 1), in 32-bit arithmetic that wraps (exact, as the word fits an int).
+// Every tap load of the columns is issued before any tap arithmetic,
+// which is rgb_sample's and luma_sample's, in their order, with byte_f32
+// for byte_at and without the RGB sums' leading 0 + (the first term is a
+// product of nonnegative factors, or NaN, so adding it to 0 changes no
+// bit).
+template <int C, int WS, int ABL, int NCOL, int R>
+__device__ __forceinline__ void sample_columns(const int* __restrict__ planes, const int* raw,
+                                               int G, const FusedMembers& t, int c0, int ncol,
+                                               int j0, int ws, float* st) {
+  const int S = ws * ws;
+  const float* f = reinterpret_cast<const float*>(raw);
+  int v[NCOL][R][C == 3 ? 4 : 1];  // RGB: taps 00, 10, 01, 11; luma: the quad
+  float ex[NCOL][R], ey[NCOL][R];  // dx1, dy1
+  float* col[NCOL];
+#pragma unroll
+  for (int q = 0; q < NCOL; ++q) {
+    if (q < ncol) {
+      const int c = c0 + q * (int)blockDim.x;
+      const int m = c / ws;  // once per column (a constant divisor where WS > 0)
+      const int i = c - m * ws;
+      const float2 tl = reinterpret_cast<const float2*>(f + 2 * G)[m];
+      const float2 d1 = reinterpret_cast<const float2*>(f + 4 * G)[m];
+      const float2 d2 = reinterpret_cast<const float2*>(f + 6 * G)[m];
+      const int* pm = planes + t.base[m];
+      const int w = t.w[m];
+      const unsigned bias = 0x4B400000u * (unsigned)(w + 1);
+      const float2 lim = t.lim[m];
+      const float fi = ABL == ABL_NOWX ? 0.0f : (float)i;
+      const float ax = __fadd_rn(tl.x, __fmul_rn(d1.x, fi));
+      const float ay = __fadd_rn(tl.y, __fmul_rn(d1.y, fi));
+      const float fj0 = (float)j0;  // a constant 0 where WS > 0
+      col[q] = st + m * C * S + j0 * ws + i;
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        if (WS > 0 || j0 + k < ws) {
+          const float fj = ABL == ABL_NOWX ? 0.0f
+                           : WS > 0       ? (float)k
+                                          : __fadd_rn(fj0, (float)k);
+          const float x = __fadd_rn(ax, __fmul_rn(d2.x, fj));
+          const float y = __fadd_rn(ay, __fmul_rn(d2.y, fj));
+          unsigned bx, by;
+          ex[q][k] = clamp01(__fsub_rn(x, tap_origin(x, lim.x, bx)));
+          ey[q][k] = clamp01(__fsub_rn(y, tap_origin(y, lim.y, by)));
+          const int* p = pm + (int)(by * (unsigned)w + bx - bias);
+          v[q][k][0] = tap<ABL>(p);
+          if (C == 3) {
+            v[q][k][1] = tap<ABL>(p + 1);
+            v[q][k][2] = tap<ABL>(p + w);
+            v[q][k][3] = tap<ABL>(p + w + 1);
+          }
+        }
+      }
     }
   }
-  __syncthreads();
-
-  const int n = group * C * S;
-  float* gout = out + b0 * C * S;
-  if ((n & 3) == 0 && (reinterpret_cast<uintptr_t>(gout) & 15) == 0) {
-    float4* g4 = reinterpret_cast<float4*>(gout);
-    for (int k = threadIdx.x; k < n / 4; k += blockDim.x) g4[k] = s_out4[k];
-  } else {  // a group of 2 (or an unaligned output) stores floats
-    for (int k = threadIdx.x; k < n; k += blockDim.x) gout[k] = s_out[k];
+#pragma unroll
+  for (int q = 0; q < NCOL; ++q) {
+    if (q < ncol) {
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        if (WS > 0 || j0 + k < ws) {
+          float* o = col[q] + k * ws;
+          const float dx1 = ex[q][k], dy1 = ey[q][k];
+          const float dx0 = __fsub_rn(1.0f, dx1), dy0 = __fsub_rn(1.0f, dy1);
+          if (C == 3) {
+            if (ABL == ABL_NOCOMPUTE) {
+#pragma unroll
+              for (int c = 0; c < 3; ++c) o[c * S] = byte_f32(v[q][k][0], c);
+            } else if (ABL == ABL_NOMM) {
+#pragma unroll
+              for (int c = 0; c < 3; ++c) {
+                float a = byte_f32(v[q][k][0], c);
+                a = __fadd_rn(a, byte_f32(v[q][k][1], c));
+                a = __fadd_rn(a, byte_f32(v[q][k][2], c));
+                o[c * S] = __fadd_rn(a, byte_f32(v[q][k][3], c));
+              }
+            } else {
+              const float f00 = __fmul_rn(dx0, dy0), f10 = __fmul_rn(dx1, dy0);
+              const float f01 = __fmul_rn(dx0, dy1), f11 = __fmul_rn(dx1, dy1);
+#pragma unroll
+              for (int c = 0; c < 3; ++c) {
+                float a = __fmul_rn(byte_f32(v[q][k][0], c), f00);
+                a = __fadd_rn(a, __fmul_rn(byte_f32(v[q][k][1], c), f10));
+                a = __fadd_rn(a, __fmul_rn(byte_f32(v[q][k][2], c), f01));
+                o[c * S] = __fadd_rn(a, __fmul_rn(byte_f32(v[q][k][3], c), f11));
+              }
+            }
+          } else {
+            const float y00 = byte_f32(v[q][k][0], 0);
+            if (ABL == ABL_NOCOMPUTE) {
+              *o = y00;
+            } else {
+              const float y10 = byte_f32(v[q][k][0], 1);
+              const float y01 = byte_f32(v[q][k][0], 2);
+              const float y11 = byte_f32(v[q][k][0], 3);
+              if (ABL == ABL_NOMM) {
+                *o = __fadd_rn(__fadd_rn(__fadd_rn(y00, y10), y01), y11);
+              } else {
+                float a = __fmul_rn(__fmul_rn(y00, dx0), dy0);
+                a = __fadd_rn(a, __fmul_rn(__fmul_rn(y10, dx1), dy0));
+                a = __fadd_rn(a, __fmul_rn(__fmul_rn(y01, dx0), dy1));
+                *o = __fadd_rn(a, __fmul_rn(__fmul_rn(y11, dx1), dy1));
+              }
+            }
+          }
+        }
+      }
+    }
   }
+}
+
+// A group's G * ws columns into the stage, NCOL columns a thread at a
+// time (columns c, c + T, ... for T threads), in passes of R samples
+template <int C, int WS, int ABL>
+__device__ __forceinline__ void sample_group(const int* __restrict__ planes, const int* raw,
+                                             int G, const FusedMembers& t, int ws,
+                                             float* st) {
+  constexpr int NCOL = fused_cols<WS>();
+  // RGB holds 4 tap words a sample, so its passes at the run-time size are
+  // half as long
+  constexpr int R = WS > 0 ? WS : (C == 3 ? MVS_COL_PASS / 2 : MVS_COL_PASS);
+  const int cols = G * ws;
+  const int T = blockDim.x;
+  for (int c0 = threadIdx.x; c0 < cols; c0 += NCOL * T) {
+    int ncol = 1;  // the columns c0 + q * T below cols
+#pragma unroll
+    for (int q = 1; q < NCOL; ++q) ncol += c0 + q * T < cols;
+    for (int j0 = 0; j0 < ws; j0 += R)  // one pass where WS > 0
+      sample_columns<C, WS, ABL, NCOL, R>(planes, raw, G, t, c0, ncol, j0, ws, st);
+  }
+}
+
+// K4: persistent blocks, each walking the groups of G windows (B a
+// multiple of G) with stride gridDim.x. Dynamic shared memory
+// (plan_fused): `nstages` output stages of stage_floats floats, two raw
+// parameter buffers (8 * G words each), then the member table. Per group:
+// the next group's parameters are copied in with cp.async while this
+// group samples (G * ws lattice columns, fused_cols<WS> a thread at a
+// time; columns past the block's threads loop); the stage goes out as
+// one TMA bulk store (tma) that overlaps the next group's work, or as
+// coalesced float stores where a group's run is not 16-byte sized or
+// aligned. The member table is rewritten for the next group only after
+// the barrier that ends this group's sampling.
+template <int C, int WS, int ABL>
+__global__ void __launch_bounds__(MVS_THREADS)
+fused_kernel(const int* __restrict__ planes, LevelMeta meta, int total, int ni, int illum,
+             const int* __restrict__ idx, const int* __restrict__ lvl,
+             const float* __restrict__ tl, const float* __restrict__ dx,
+             const float* __restrict__ dy, float* __restrict__ out, int B, int wsize,
+             int G, int stage_floats, int nstages, int tma, int vec16) {
+  const int ws = WS > 0 ? WS : wsize;
+  const int ngroups = B / G;
+  extern __shared__ float4 smem4[];
+  float* stage = reinterpret_cast<float*>(smem4);
+  int* raw = reinterpret_cast<int*>(stage + nstages * stage_floats);
+  FusedMembers t;
+  t.base = reinterpret_cast<int64_t*>(raw + 16 * G);
+  t.lim = reinterpret_cast<float2*>(t.base + G);
+  t.w = reinterpret_cast<int*>(t.lim + G);
+  const int run = G * C * ws * ws;  // floats per group
+
+  int g = blockIdx.x;
+  copy_params(raw, G, (int64_t)g * G, G, vec16, idx, lvl, tl, dx, dy);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  resolve_fused(raw, G, t, meta, total, ni, illum);
+  for (int it = 0; g < ngroups; g += gridDim.x, ++it) {
+    const int* cur = raw + (it & 1) * 8 * G;
+    int* nxt = raw + ((it & 1) ^ 1) * 8 * G;
+    const int next = g + gridDim.x;
+    if (next < ngroups)
+      copy_params(nxt, G, (int64_t)next * G, G, vec16, idx, lvl, tl, dx, dy);
+    cp_async_commit();
+    float* st = stage + (nstages == 2 ? it & 1 : 0) * stage_floats;
+    if (tma && threadIdx.x == 0) {  // the store that last read `st` is done
+      if (nstages == 2) bulk_wait_read<1>(); else bulk_wait_read<0>();
+    }
+    __syncthreads();  // members resolved, `st` free
+    sample_group<C, WS, ABL>(planes, cur, G, t, ws, st);
+    if (tma) fence_proxy_async();
+    cp_async_wait_all();
+    __syncthreads();  // stage complete, next parameters arrived
+    float* gout = out + (int64_t)g * run;
+    if (tma) {
+      if (threadIdx.x == 0) bulk_store(gout, st, run * (int)sizeof(float));
+    } else {
+      for (int k = threadIdx.x; k < run; k += blockDim.x) gout[k] = st[k];
+    }
+    if (next < ngroups) resolve_fused(nxt, G, t, meta, total, ni, illum);
+  }
+  if (tma && threadIdx.x == 0) bulk_wait_all();
 }
 
 static int make_meta(LevelMeta* meta, const int* off, const int* w,
@@ -713,11 +886,12 @@ static int make_meta(LevelMeta* meta, const int* off, const int* w,
   return 0;
 }
 
-// the multiple of 32 in [128, MVS_THREADS] that leaves the fewest idle
-// threads in the last pass over n samples
-static int group_threads(int n) {
+// the multiple of 32 in [lo, MVS_THREADS] that leaves the fewest idle
+// threads in the last pass over n items (samples of the window kernel's
+// tile, K4's lattice column sets), the largest of those that tie
+static int group_threads(int n, int lo = 128) {
   int threads = MVS_THREADS, idle = INT_MAX;
-  for (int t = MVS_THREADS; t >= 128; t -= 32) {
+  for (int t = MVS_THREADS; t >= lo; t -= 32) {
     const int w = (n + t - 1) / t * t - n;
     if (w < idle) { idle = w; threads = t; }
   }
@@ -737,26 +911,6 @@ struct Launch {
   int B, wsize, group;
   cudaStream_t stream;
 };
-
-template <int C, int ABL>
-static int launch_fused(const Launch& a) {
-  const size_t smem = (size_t)a.group * C * a.wsize * a.wsize * sizeof(float);
-  auto kernel = sample_windows_fused_kernel<C, ABL>;
-  if (smem > MVS_STATIC_SMEM_LIMIT) {
-    // above 48 KB only as opted-in dynamic shared memory; a size beyond
-    // the block's limit (227 KB on the H100) fails here or at launch
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) {
-      cudaGetLastError();  // consume it: the next launch's check reads it
-      return (int)err;
-    }
-  }
-  kernel<<<a.B / a.group, group_threads(a.group * a.wsize * a.wsize), smem,
-           a.stream>>>(a.planes, a.meta, a.total, a.ni, a.illum, a.idx, a.lvl, a.tl,
-                       a.dx, a.dy, a.out, a.wsize, a.group);
-  return (int)cudaGetLastError();
-}
 
 // ---- the window kernel's launch plan ----
 
@@ -896,7 +1050,75 @@ static int plan_ungrouped(int B, int wsize, bool out16, bool params16, Plan* p) 
   return plan_tiles<C, WS, ABL>(d, B, wsize, G, 1, MVS_THREADS, out16, params16, p);
 }
 
+// ---- K4's launch plan ----
+
+// dynamic shared memory of K4 for groups of G windows: `stages` output
+// stages of (G * C * wsize^2 rounded up to 4) floats, two raw parameter
+// buffers (32 B a member each) and the member table (20 B a member)
+static int fused_smem(int C, int G, int wsize, int stages) {
+  const int stage_floats = (G * C * wsize * wsize + 3) & ~3;
+  return stages * stage_floats * (int)sizeof(float) + 84 * G;
+}
+
+// The launch of fused_kernel<C, WS, ABL> for B windows in groups of
+// `group` (B a multiple of it, group in [2, MVS_MAX_GROUP]): two output
+// stages where they fit the card's shared memory, else one (a size the
+// card refuses returns its error); the multiple of 32 in [32,
+// MVS_THREADS] threads that leaves the fewest idle in a group's last pass
+// over its group * wsize lattice columns, fused_cols<WS> a thread; the
+// TMA store where
+// a group's run is a multiple of 16 bytes and the output 16-byte aligned;
+// 16-byte parameter copies where group is a multiple of 4 and the
+// parameter arrays 16-byte aligned; the persistent grid min(groups, SMs
+// x resident blocks per SM).
+template <int C, int WS, int ABL>
+static int plan_fused(int B, int wsize, int group, bool out16, bool params16, Plan* p) {
+  if (group < 2 || group > MVS_MAX_GROUP || B % group != 0 || wsize < 1)
+    return (int)cudaErrorInvalidValue;
+  DeviceInfo d;
+  int err = device_info(&d);
+  if (err) return err;
+  const int run = group * C * wsize * wsize;
+  p->tile = group;
+  p->stages = fused_smem(C, group, wsize, 2) <= d.optin ? 2 : 1;
+  p->stage_floats = (run + 3) & ~3;
+  p->smem = fused_smem(C, group, wsize, p->stages);
+  if (p->smem > d.optin) return (int)cudaErrorInvalidValue;
+  const int ncol = fused_cols<WS>();
+  p->threads = group_threads((group * wsize + ncol - 1) / ncol, 32);
+  p->tma = run % 4 == 0 && out16;
+  p->vec16 = group % 4 == 0 && params16;
+  p->sms = d.sms;
+  const void* fn = (const void*)fused_kernel<C, WS, ABL>;
+  err = opt_in_smem(fn, d);
+  if (err) return err;
+  err = resident_blocks(fn, d.dev, p->threads, p->smem, &p->blocks_per_sm);
+  if (err) return err;
+  p->grid = (int)std::min((int64_t)(B / group), (int64_t)d.sms * p->blocks_per_sm);
+  return 0;
+}
+
 static bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+template <int C, int WS, int ABL>
+static int launch_fused_ws(const Launch& a) {
+  Plan p;
+  const bool params16 = aligned16(a.idx) && aligned16(a.lvl) && aligned16(a.tl) &&
+                        aligned16(a.dx) && aligned16(a.dy);
+  const int err =
+      plan_fused<C, WS, ABL>(a.B, a.wsize, a.group, aligned16(a.out), params16, &p);
+  if (err) return err;
+  fused_kernel<C, WS, ABL><<<p.grid, p.threads, p.smem, a.stream>>>(
+      a.planes, a.meta, a.total, a.ni, a.illum, a.idx, a.lvl, a.tl, a.dx, a.dy, a.out,
+      a.B, a.wsize, p.tile, p.stage_floats, p.stages, p.tma, p.vec16);
+  return (int)cudaGetLastError();
+}
+
+// K4 at WS = 7 is compiled for its size; every other size runs WS = 0
+template <int C, int ABL>
+static int launch_fused(const Launch& a) {
+  return a.wsize == 7 ? launch_fused_ws<C, 7, ABL>(a) : launch_fused_ws<C, 0, ABL>(a);
+}
 
 template <int C, int WS, int ABL>
 static int launch_windows_ws(const Launch& a, bool grouped) {
@@ -939,10 +1161,9 @@ static int launch_form(int form, const Launch& a) {
     case FORM_LUMA_GROUPED:
       return launch_windows<1, ABL>(a, true);
     case FORM_FUSED:
+      return launch_fused<3, ABL>(a);
     case FORM_LUMA_FUSED:
-      if (a.group < 2 || a.group > MVS_MAX_GROUP || a.B % a.group != 0)
-        return (int)cudaErrorInvalidValue;
-      return form == FORM_FUSED ? launch_fused<3, ABL>(a) : launch_fused<1, ABL>(a);
+      return launch_fused<1, ABL>(a);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1029,7 +1250,7 @@ extern "C" int mvs_sample_windows_luma_grouped(MVS_COMMON_PARAMS, int group,
 }
 
 // Fused RGB launch (K4, fused=True): the grouped form's output, one
-// float4 run per group; the same rules on group.
+// store per group; the same rules on group.
 extern "C" int mvs_sample_windows_fused(MVS_COMMON_PARAMS, int group,
                                         int ablate, void* stream) {
   return launch(FORM_FUSED, MVS_COMMON_ARGS, group, ablate, stream);
@@ -1041,14 +1262,14 @@ extern "C" int mvs_sample_windows_luma_fused(MVS_COMMON_PARAMS, int group,
   return launch(FORM_LUMA_FUSED, MVS_COMMON_ARGS, group, ablate, stream);
 }
 
-// The window kernel's plan for B windows of wsize on the current device,
-// with the wrapper's 16-byte aligned arrays, for `form` (FORM_UNGROUPED,
-// FORM_GROUPED, FORM_LUMA_UNGROUPED or FORM_LUMA_GROUPED; `group` for the
-// grouped forms): writes tile, grid, threads, dynamic shared memory
-// bytes, output stages, TMA store (0/1), 16-byte parameter copies (0/1),
-// resident blocks per SM, SM count and floats per stage into plan[0..9].
-// Returns the error the launch would return,
-// else 0.
+// The plan of the window kernel (FORM_UNGROUPED, FORM_GROUPED,
+// FORM_LUMA_UNGROUPED, FORM_LUMA_GROUPED) or of K4 (FORM_FUSED,
+// FORM_LUMA_FUSED) for B windows of wsize on the current device, with the
+// wrapper's 16-byte aligned arrays (`group` for the grouped and fused
+// forms): writes tile, grid, threads, dynamic shared memory bytes, output
+// stages, TMA store (0/1), 16-byte parameter copies (0/1), resident
+// blocks per SM, SM count and floats per stage into plan[0..9]. Returns
+// the error the launch would return, else 0.
 extern "C" int mvs_sample_windows_plan(int form, int B, int wsize, int group, int* plan) {
   Plan p;
   int err;
@@ -1069,6 +1290,14 @@ extern "C" int mvs_sample_windows_plan(int form, int B, int wsize, int group, in
     case FORM_LUMA_GROUPED:
       err = ws7 ? plan_grouped<1, 7, ABL_NONE>(B, wsize, group, true, true, &p)
                 : plan_grouped<1, 0, ABL_NONE>(B, wsize, group, true, true, &p);
+      break;
+    case FORM_FUSED:
+      err = ws7 ? plan_fused<3, 7, ABL_NONE>(B, wsize, group, true, true, &p)
+                : plan_fused<3, 0, ABL_NONE>(B, wsize, group, true, true, &p);
+      break;
+    case FORM_LUMA_FUSED:
+      err = ws7 ? plan_fused<1, 7, ABL_NONE>(B, wsize, group, true, true, &p)
+                : plan_fused<1, 0, ABL_NONE>(B, wsize, group, true, true, &p);
       break;
     default:
       return (int)cudaErrorInvalidValue;

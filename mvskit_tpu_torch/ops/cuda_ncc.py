@@ -20,7 +20,8 @@ version repeats. ``LAUNCHES`` counts kernel launches per form, and
 ablated launches per switch; ``WINDOWS`` counts those launches per
 batch size. ``grouped_plan`` and ``ungrouped_plan`` report how the
 persistent window kernel launches a batch on the current card (tile,
-grid, threads, shared memory, output stages, store path).
+grid, threads, shared memory, output stages, store path), and
+``fused_plan`` how the fused form (K4) does.
 """
 
 from __future__ import annotations
@@ -254,8 +255,9 @@ def _launch(scene: Scene, idx, lvl, tl, dx, dy, wsize: int, illum: int,
     return out
 
 
-# csrc/sample_windows.cu's Form enum values of the window kernel's forms
-_FORMS = {"ungrouped": 0, "grouped": 1, "luma_ungrouped": 2, "luma_grouped": 3}
+# csrc/sample_windows.cu's Form enum values
+_FORMS = {"ungrouped": 0, "grouped": 1, "luma_ungrouped": 2, "luma_grouped": 3,
+          "fused": 4, "luma_fused": 5}
 PLAN_KEYS = ("tile", "grid", "threads", "smem_bytes", "stages", "tma_store",
              "param_copy16", "blocks_per_sm", "sms", "stage_floats")
 
@@ -293,6 +295,14 @@ def ungrouped_plan(B: int, wsize: int, luma: bool = False) -> dict:
     windows of a fixed sample count (40 RGB or 64 luma windows at 7 x 7)
     and one output stage. Needs the card."""
     return _plan("luma_ungrouped" if luma else "ungrouped", B, wsize, 1)
+
+
+def fused_plan(B: int, wsize: int, group: int, luma: bool = False) -> dict:
+    """How the fused form (K4) launches B windows of wsize in groups of
+    `group` on the current card: the record of ``grouped_plan``, where
+    `threads` serve one lattice row each (group * wsize rows a group).
+    Raises where the launch would fail. Needs the card."""
+    return _plan("luma_fused" if luma else "fused", B, wsize, group)
 
 
 def sample_windows(scene: Scene, idx, lvl, tl, dx, dy, wsize: int,

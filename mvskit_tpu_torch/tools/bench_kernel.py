@@ -87,6 +87,56 @@ def window_layout(scene, Ps, n_windows: int, group: int = 1) -> Dict:
                 tl=tl.contiguous(), dx=dx.contiguous(), dy=dy.contiguous(), valid=valid)
 
 
+def edge_windows(scene, n_windows: int = 2048, seed: int = 0):
+    """Windows whose lattices reach every edge case of the tap origin
+    and fractions, beside ordinary ones: every third window takes the
+    next of ``edge_cases`` on its level (w, h): NaN, +-inf and -0.0
+    coordinates, negative ones, ones on integers, on w - 2 and h - 2 and
+    past them, next to integers, denormal, and past int32. The others lie
+    inside their level at random. Views, levels and lattices are drawn
+    with numpy from `seed`. Returns idx, lvl [B] int32, tl, dx, dy [B, 2]
+    f32 on the scene's device."""
+    rng = np.random.default_rng(seed)
+    B = n_windows
+    idx = rng.integers(0, scene.n_images, B)
+    lvl = rng.integers(0, len(scene.offsets), B)
+    w = np.asarray(scene.widths, np.float32)[lvl]
+    h = np.asarray(scene.heights, np.float32)[lvl]
+    tl = np.stack([rng.uniform(0, w - 1), rng.uniform(0, h - 1)], 1).astype(np.float32)
+    step = rng.uniform(-1.5, 1.5, (B, 2, 2)).astype(np.float32)
+    dx, dy = step[:, 0].copy(), step[:, 1].copy()
+    for b in range(0, B, 3):
+        cases = edge_cases(float(w[b]), float(h[b]))
+        tl[b], dx[b], dy[b] = cases[(b // 3) % len(cases)]
+    as_t = lambda a, t: torch.as_tensor(np.ascontiguousarray(a), dtype=t,  # noqa: E731
+                                        device=scene.device)
+    return (as_t(idx, torch.int32), as_t(lvl, torch.int32), as_t(tl, torch.float32),
+            as_t(dx, torch.float32), as_t(dy, torch.float32))
+
+
+def edge_cases(w: float, h: float):
+    """(tl, dx, dy) of each edge case of ``edge_windows`` on a level of
+    w x h pixels."""
+    inf, nan = float("inf"), float("nan")
+    below5 = float(np.nextafter(np.float32(5), np.float32(0)))
+    ex, ey = (1.0, 0.0), (0.0, 1.0)  # unit steps: every sample on the grid of tl
+    return (
+        ((nan, 10.0), ex, ey), ((10.0, nan), ex, ey),
+        ((inf, 5.0), ex, ey), ((-inf, 5.0), ex, ey), ((5.0, inf), ex, (0.0, -inf)),
+        ((-3.7, -2.2), ex, ey),                          # negative, crossing 0
+        ((3.0, 4.0), ex, ey),                            # on integers
+        ((w - 5, h - 5), ex, ey),                        # integers up to and past w - 2
+        ((w - 2, h - 2), (0.5, 0.0), (0.0, 0.5)),        # from w - 2 outwards
+        ((w - 2.25, h - 1.5), (0.25, 0.5), (-0.5, 0.25)),
+        ((below5, below5), ex, ey),                      # one ulp below integers
+        ((3e9, -3e9), (1e30, 0.0), (0.0, -1e30)),        # past int32
+        ((1e-45, -1e-45), (1e-45, 0.0), (0.0, 1e-45)),   # denormal
+        ((-0.0, -0.0), (-0.0, 0.0), (0.0, -0.0)),
+        ((4.0, 4.0), (inf, 0.0), (0.0, nan)),            # inf * 0 at i = 0
+        ((w / 2, h / 2), (-1.0, -1.0), (-1.0, 1.0)),     # walking off the top left
+    )
+
+
 # cycles of torch.cuda._sleep queued before each timed call (about
 # 20 ms at the H100's 1.98 GHz boost clock): the host enqueues the whole
 # call while the device waits, so the events time the device's work and

@@ -11,7 +11,9 @@ own directory, so each builds and loads its own kernels: `kernels`
 (default) is `chip_smoke.kernel_phase`, compared by each kernel's device
 ms, and where a record has them by the device ms of the ungrouped
 launch on the same windows (`ungrouped_ms_same_windows`, K1 beside K2
-and K3u beside K3g) and on the gauntlet's windows (`gauntlet_windows`);
+and K3u beside K3g), of the grouped launch on the same windows
+(`grouped_ms_same_windows`, K2 and K3g beside K4) and on the gauntlet's
+windows (`gauntlet_windows`);
 `paths` is `chip_smoke.paths_phase` (RGB, luma, short ungrouped luma,
 3-illumination runs), compared by each path's propagation seconds. It
 prints the card (name and power limit), then per record each run's
@@ -44,6 +46,8 @@ def metrics(phase: str, record: dict) -> dict:
     out = {"ms": record["ms"]}
     if "ungrouped_ms_same_windows" in record:
         out["ungrouped_ms_same_windows"] = record["ungrouped_ms_same_windows"]
+    if "grouped_ms_same_windows" in record:
+        out["grouped_ms_same_windows"] = record["grouped_ms_same_windows"]
     if "gauntlet_windows" in record:
         out["gauntlet_ms"] = record["gauntlet_windows"]["ms"]
     return out

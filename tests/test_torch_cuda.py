@@ -10,9 +10,11 @@ Tolerances: every launch form equals its plain version bit for bit
 requires: ungrouped (K1 RGB, K3u luma) and grouped (K2, K3g), all four
 the persistent window kernel, at the compiled window size 7 and the
 run-time size instance, at every batch size (a ragged last tile
-included) and illumination; fused (K4) equals ungrouped bit for bit;
-every ablation switch (K5) in every launch form equals its plain version
-bit for bit.
+included) and illumination; fused (K4, its own persistent kernel) equals
+the plain version and the grouped launch bit for bit at every window size
+and group, and on edge lattices (NaN, +-inf, negative coordinates, ones
+on integers and past w - 2) in every switch; every ablation switch (K5)
+in every launch form equals its plain version bit for bit.
 The view-sharded sampler on k shards of the card (each launching the
 batch's form on its compacted windows) equals the unsharded launch bit
 for bit; a mesh of more cards than there are raises.
@@ -111,8 +113,8 @@ def test_luma_kernel_forms_match_plain_bitwise(card):
 
 def test_fused_forms_match_grouped_and_plain_bitwise(card):
     """K4 in both channel modes at group 2 (float stores), 32 and 128
-    (75 KB of dynamic shared memory for RGB); a group whose outputs pass
-    the block's shared-memory limit raises."""
+    (75 KB a stage for RGB); a group whose one stage passes the block's
+    shared-memory limit raises."""
     from mvskit_tpu_torch.ops import cuda_ncc
     from mvskit_tpu_torch.utils import synthetic
 
@@ -239,6 +241,111 @@ def test_grouped_form_walks_many_groups_per_block(card, luma):
         torch.cuda.synchronize()
         assert torch.equal(_bits(out), _bits(ung)), wsize
         assert torch.equal(_bits(ung), _bits(plain)), wsize
+
+
+@pytest.mark.parametrize("luma", [False, True])
+def test_fused_form_every_size_and_group_bitwise(card, luma):
+    """K4 (RGB / luma), the persistent fused kernel with one thread per
+    lattice row, at wsize 5, 7 (the compiled-size instance), 9 and 15 (the
+    run-time size instance) and group 2, 4, 32 and 128: bit-equal to the
+    plain version and to the grouped launch. Group 2 at 7 x 7 (392 B luma
+    per group) leaves by float stores, the others by TMA bulk store; where
+    two output stages pass the H100's 232,448 B per block (RGB group 128
+    at 9 x 9, luma group 128 at 15 x 15) it runs one. RGB group 128 at
+    15 x 15 (345,600 B for one stage) is refused, and the wrapper
+    raises."""
+    from mvskit_tpu_torch.ops import cuda_ncc
+    from mvskit_tpu_torch.utils import synthetic
+
+    _, _, scene = synthetic.plane_scene(n_views=6, width=160, height=120, device=card)
+    form = "luma_fused" if luma else "fused"
+    cuda_ncc.reset_launches()
+    fused = 0
+    for wsize in (5, 7, 9, 15):
+        args = _windows(scene, wsize=wsize)
+        B = args[0].shape[0]
+        plain = _plain_fn(luma)(scene, *args, wsize)
+        for group in (2, 4, 32, 128):
+            if not luma and (wsize, group) == (15, 128):
+                with pytest.raises(RuntimeError, match="fused"):
+                    cuda_ncc.fused_plan(B, wsize, group, luma)
+                with pytest.raises(RuntimeError, match="fused"):
+                    cuda_ncc.sample_windows(scene, *args, wsize, group=group, luma=luma,
+                                            fused=True)
+                continue
+            plan = cuda_ncc.fused_plan(B, wsize, group, luma)
+            out, fit = cuda_ncc.sample_windows(scene, *args, wsize, group=group, luma=luma,
+                                               fused=True)
+            grp, _ = cuda_ncc.sample_windows(scene, *args, wsize, group=group, luma=luma)
+            torch.cuda.synchronize()
+            fused += 1
+            assert fit.all() and torch.equal(_bits(out), _bits(plain)), (wsize, group, plan)
+            assert torch.equal(_bits(out), _bits(grp)), (wsize, group, plan)
+            run_bytes = group * wsize * wsize * (1 if luma else 3) * 4
+            assert plan["tma_store"] == (run_bytes % 16 == 0), plan
+            single = (wsize, group) == ((15, 128) if luma else (9, 128))
+            assert plan["stages"] == (1 if single else 2), (wsize, group, plan)
+            assert 1 <= plan["grid"] <= B // group and plan["tile"] == group, plan
+            assert plan["threads"] % 32 == 0 and 32 <= plan["threads"] <= 256, plan
+    assert cuda_ncc.LAUNCHES == dict(_no_launches(), **{
+        form: fused, ("luma_grouped" if luma else "grouped"): fused})
+
+
+@pytest.mark.parametrize("luma", [False, True])
+def test_fused_form_walks_many_groups_per_block(card, luma):
+    """K4 on 786,432 windows in groups of 32 (the refinement batch) at
+    7 x 7 and 5 x 5: at least 8 groups per persistent block, so every
+    block walks both parameter buffers and both output stages many times;
+    bit-equal to the grouped launch and the plain version."""
+    from mvskit_tpu_torch.ops import cuda_ncc
+    from mvskit_tpu_torch.utils import synthetic
+
+    _, _, scene = synthetic.plane_scene(n_views=6, width=160, height=120, device=card)
+    for wsize in (WSIZE, 5):
+        args = _windows(scene, n_patch=8192, wsize=wsize)
+        B = args[0].shape[0]
+        plan = cuda_ncc.fused_plan(B, wsize, 32, luma)
+        assert B // 32 >= 8 * plan["grid"], plan
+        assert plan["tma_store"] and plan["stages"] == 2, plan
+        out, _ = cuda_ncc.sample_windows(scene, *args, wsize, group=32, luma=luma, fused=True)
+        grp, _ = cuda_ncc.sample_windows(scene, *args, wsize, group=32, luma=luma)
+        plain = _plain_fn(luma)(scene, *args, wsize)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(out), _bits(grp)), wsize
+        assert torch.equal(_bits(out), _bits(plain)), wsize
+
+
+def test_edge_lattices_every_form_and_switch_bitwise(card):
+    """Edge lattices (tools/bench_kernel.edge_windows: NaN, +-inf, -0.0,
+    negative coordinates, ones on integers, on w - 2 and past it, one ulp
+    below integers, denormal, past int32) through K4 in both channel
+    modes, at 7 x 7 (compiled) and 5 x 5 (run-time size), in groups of 2,
+    32 and 128 and under every K5 switch, and through the window kernel's
+    ungrouped and grouped launches: each bit-equal to its plain
+    version."""
+    from mvskit_tpu_torch.ops import cuda_ncc
+    from mvskit_tpu_torch.tools import bench_kernel
+    from mvskit_tpu_torch.utils import synthetic
+
+    _, _, scene = synthetic.plane_scene(n_views=6, width=160, height=120, device=card)
+    args = bench_kernel.edge_windows(scene, 2048)
+    cuda_ncc.reset_launches()
+    for wsize in (WSIZE, 5):
+        for luma in (False, True):
+            for ablate in cuda_ncc.ABLATIONS:
+                plain = _plain_fn(luma)(scene, *args, wsize, ablate=ablate)
+                runs = [(32, True), (1, False), (32, False)]
+                if not ablate:
+                    runs += [(2, True), (128, True)]
+                for group, fused in runs:
+                    out, _ = cuda_ncc.sample_windows(scene, *args, wsize, group=group,
+                                                     luma=luma, fused=fused, ablate=ablate)
+                    torch.cuda.synchronize()
+                    assert torch.equal(_bits(out), _bits(plain)), (
+                        wsize, luma, ablate, group, fused)
+    assert cuda_ncc.LAUNCHES["fused"] == cuda_ncc.LAUNCHES["luma_fused"] == 2 * 3
+    assert all(cuda_ncc.LAUNCHES[f"ablate_{a}"] == 2 * 2 * 3
+               for a in cuda_ncc.ABLATIONS[1:])
 
 
 def test_kernels_read_the_asked_illumination(card):
