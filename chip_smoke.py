@@ -50,15 +50,24 @@ Phases (any failure raises and the process exits non-zero):
      floors there.
   9. meshes: `PMMVS` on phase 3's dataset with the default config,
      unsharded and then with the meshes (dp, view, tile) = (1, 2, 1),
-     (1, 1, 2) and (2, 2, 2) as logical shards of the one card
-     (`mesh_devices=[cuda:0] * k`); each sharded run's alive counts per
-     iteration and cloud (coord, normal, ncc, images) equal the
-     unsharded run's bit for bit, and every view shard launched K1 and
-     K2 on its own windows;
+     (1, 1, 2), (2, 1, 1), (4, 1, 1) and (2, 2, 2) as logical shards of
+     the one card (`mesh_devices=[cuda:0] * k`); each sharded run's
+     alive counts per iteration and cloud (coord, normal, ncc, images)
+     equal the unsharded run's bit for bit, every view shard launched K1
+     and K2 on its own windows, and every dp shard took rows in every
+     stage its axis partitions (`shard.DP_ROWS`; with a tile axis the
+     rounds' grid build and donor selection are the tiles') and launched
+     K1 in hypothesis scoring (`shard.DP_K1`);
  10. multihost: `mvskit_tpu_torch.tools.multihost_ncc` as two processes
      on the card joined by gloo, then as one process on nccl (a real
      NCCL init and all_reduce); each rank's view-sharded NCC equals its
      single-process value (each child has a timeout).
+ 11. grid and round benches (run after phase 5, before phase 7 rewrites
+     the RGB path's .patch): `tools.bench_grid.run` at production
+     capacity (2^18 rows, 57,850 alive) on phase 3's dataset, plain,
+     `--tiles 2` and `--dp 2`, all three equal; `tools.bench_prop_parts.run`
+     on the RGB path's final .patch at dp 1 and 2, each stage's time and
+     K1/K2 launches logged.
 Each path runs with the launch counters set to 0 just before it and
 read just after (launches and windows per launch of each form); each
 checks its outputs and, where the path has one, its quality against the
@@ -596,7 +605,7 @@ def summarize(tag, report, wall, launches, windows, m):
                "filter_kills": report["filters"], "hypotheses": hyp,
                "propagate_s": prop_s, "hypotheses_per_s": hyp / max(prop_s, 1e-9),
                "peak_mem_gib": report.get("peak_mem_gib"), "quality": m,
-               "view_shards": report.get("shards"),
+               "view_shards": report.get("shards"), "dp": report.get("dp"),
                "windows": {k: {f: v[f] for f in ("count", "median", "max")}
                            for k, v in windows.items()}}
     log(f"[{tag}] summary " + json.dumps(summary))
@@ -659,6 +668,17 @@ def shard_stats():
     return {"calls": calls, "syncs": ncc.SHARD_SYNCS["sampler"]}
 
 
+def dp_stats():
+    """The dp axis's rows per stage and shard, and its K1 launches per
+    shard from hypothesis scoring."""
+    from mvskit_tpu_torch.parallel import shard as sh
+
+    rows = {}
+    for (stage, shard), n in sorted(sh.DP_ROWS.items()):
+        rows.setdefault(stage, {})[str(shard)] = n
+    return {"rows": rows, "k1": {str(k): v for k, v in sorted(sh.DP_K1.items())}}
+
+
 def engine_path(tag, dev, prefix, scene=None, mesh_devices=None, **overrides):
     """PMMVS through the Python API (the luma search has no CLI flag),
     seed + run, with the launch counters reset just before and read
@@ -668,6 +688,7 @@ def engine_path(tag, dev, prefix, scene=None, mesh_devices=None, **overrides):
 
     from mvskit_tpu_torch.config import MVSConfig
     from mvskit_tpu_torch.ops import cuda_ncc, ncc
+    from mvskit_tpu_torch.parallel import shard as sh
     from mvskit_tpu_torch.pipeline.driver import PMMVS
 
     cfg = MVSConfig.from_option_file(prefix)
@@ -677,6 +698,7 @@ def engine_path(tag, dev, prefix, scene=None, mesh_devices=None, **overrides):
         torch.cuda.reset_peak_memory_stats(dev)
     cuda_ncc.reset_launches()
     ncc.reset_shard_stats()
+    sh.reset_dp_stats()
     t0 = time.time()
     engine = PMMVS(cfg, scene=scene, device=dev, log=lambda *a: None,
                    mesh_devices=mesh_devices)
@@ -691,7 +713,7 @@ def engine_path(tag, dev, prefix, scene=None, mesh_devices=None, **overrides):
         data = engine.collect()
     finally:
         engine.close()
-    report = dict(engine.report, shards=shard_stats(), peak_mem_gib=(
+    report = dict(engine.report, shards=shard_stats(), dp=dp_stats(), peak_mem_gib=(
         torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else None))
     cloud = data["coord"][:, :3]
     if cloud.shape[0] <= 0 or not np.isfinite(cloud).all():
@@ -745,7 +767,12 @@ def pmvs_phase(dev, workdir):
     return summary
 
 
-MESHES = ((1, 2, 1), (1, 1, 2), (2, 2, 2))
+MESHES = ((1, 2, 1), (1, 1, 2), (2, 1, 1), (4, 1, 1), (2, 2, 2))
+# the stages a dp axis partitions (shard.DP_ROWS); with a tile axis the
+# rounds' grid build and donor selection are the tiles', and the filter
+# pass's grid builds are the dp axis's
+DP_STAGES = ("grid", "vimages", "donors", "hypotheses", "gauntlet", "insert", "outside",
+             "exact", "neighbor", "groups")
 
 
 def mesh_phase(dev, workdir, rgb):
@@ -790,8 +817,37 @@ def mesh_phase(dev, workdir, rgb):
                     raise AssertionError(f"mesh {name}: view shard {s_} launched no {form}")
         if not (summary["launches"]["ungrouped"] > 0 and summary["launches"]["grouped"] > 0):
             raise AssertionError(f"mesh {name} missed a kernel: {summary['launches']}")
-        log(f"[mesh_{name}] cloud and alive counts equal to the unsharded run bit for bit")
+        rows, k1 = summary["dp"]["rows"], summary["dp"]["k1"]
+        for stage in (DP_STAGES if dp > 1 else ()):
+            if stage == "donors" and tile > 1:
+                continue
+            got = [rows.get(stage, {}).get(str(i), 0) for i in range(dp)]
+            if min(got) <= 0:
+                raise AssertionError(f"mesh {name}: a dp shard took no rows in {stage}: {got}")
+        if dp > 1 and min(k1.get(str(i), 0) for i in range(dp)) <= 0:
+            raise AssertionError(f"mesh {name}: a dp shard launched no K1: {k1}")
+        log(f"[mesh_{name}] cloud and alive counts equal to the unsharded run bit for bit"
+            + (f"; dp rows {json.dumps(rows)}, dp K1 {json.dumps(k1)}" if dp > 1 else ""))
     return out
+
+
+def bench_tools_phase(dev, workdir):
+    """Phase 11: tools/bench_grid at production capacity on phase 3's
+    dataset (plain, 2 tiles, dp 2; run() raises where a sharded build
+    differs), then tools/bench_prop_parts on the RGB path's final .patch
+    at dp 1 and 2. Returns both records."""
+    from mvskit_tpu_torch.tools import bench_grid, bench_prop_parts
+
+    plane = os.path.join(workdir, "plane16")
+    grid = bench_grid.run(plane, tiles=2, dp=2, device=dev)
+    log("[benches] bench_grid " + json.dumps(grid))
+    parts, _ = bench_prop_parts.run(plane, os.path.join(plane, "ply", "final_patches.patch"),
+                                    dp=2, device=dev)
+    for tag, table in parts["stages"].items():
+        log(f"[benches] bench_prop_parts {tag} " + json.dumps(table))
+    log("[benches] bench_prop_parts " + json.dumps(
+        {k: v for k, v in parts.items() if k != "stages"}))
+    return grid, parts
 
 
 def multihost_phase():
@@ -905,6 +961,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="mvskit_smoke_") as work:
         paths = paths_phase(dev, work)
         t0 = time.time()
+        bench_tools_phase(dev, work)
+        log(f"[benches] phase {time.time() - t0:.2f} s")
+        t0 = time.time()
         bench, bench_launches = bench_phase(dev)
         log(f"[bench] phase {time.time() - t0:.2f} s")
         paths["pmvs"] = pmvs_phase(dev, work)
@@ -954,6 +1013,9 @@ def main() -> int:
                     k.split("/")[0]: v["launches"]
                     for k, v in m["view_shards"]["calls"].items() if k.endswith("/" + form)}}
                 for name, m in meshes.items()}
+        if form == "ungrouped":  # per dp shard from hypothesis scoring
+            for name, m in meshes.items():
+                entry["mesh_launches"][name]["hypotheses_per_dp_shard"] = m["dp"]["k1"]
         if "gauntlet_windows" in r:  # K3u
             entry["gauntlet_windows"] = {k: r["gauntlet_windows"][k] for k in (
                 "windows", "ms", "bound_ms", "plan", "floor_ms")}

@@ -14,6 +14,7 @@ are the JAX package's own design, kept here with its split:
 Axes: ``view`` shards the pyramid planes (every NCC window fetch runs
 per shard on its own planes, ``ops/ncc._sample_windows_view_sharded``);
 ``tile`` shards the cell-grid rows of a propagation round
-(``tiles.tiled_propagate_round``); ``dp`` deals the gauntlet's chunks to
-devices (``pipeline/propagate._gauntlet_chunked``).
+(``tiles.tiled_propagate_round``); ``dp`` deals the rows each stage of a
+round and of the filter pass scans to its devices in contiguous blocks
+and merges them exactly (``shard.deal_rows``).
 """

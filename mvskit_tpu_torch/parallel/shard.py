@@ -18,10 +18,26 @@ JAX's ``NamedSharding`` / ``PartitionSpec`` have no counterpart: a
 tensor here lives on one device. ``shard_rows`` (``shard_table``'s
 counterpart) returns the row blocks themselves, one per device of the
 axis, and ``replicate`` a copy on one device.
+
+The dp axis (``deal_rows``) splits the rows a stage scans, not the
+table's capacity: the compacted-table invariant keeps every live row in
+a prefix [0, R), so equal blocks of the capacity would leave all but the
+first device idle. R is the stage's ``row_limit`` (the whole capacity
+for insertion and the pmvs donor sort, which scan every row): below it
+a dead row costs a dense pass as much as a live one, so equal blocks of
+[0, R) balance the work, and the exact live bound would cost a host
+sync per stage. Each dp stage deals [0, R) as contiguous blocks in
+order, gives a stage that reads rows by arbitrary index one replica of
+what it reads per distinct device (``replicas``; the counterpart of the
+all-gathers GSPMD inserts), and joins the blocks' results on the home
+device in block order. ``DP_ROWS`` counts the rows each dp shard took in
+each stage and ``DP_K1`` the K1 launches each made in hypothesis
+scoring; ``reset_dp_stats`` clears both.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -140,6 +156,87 @@ def shard_rows(x, mesh: Mesh, axis: str = "dp"):
         return [PatchTable(*blocks) for blocks in zip(*parts)]
     per = -(-x.shape[0] // len(devs))
     return [x[i * per:(i + 1) * per].to(d) for i, d in enumerate(devs)]
+
+
+def replicas(devices, home, *trees) -> Dict[torch.device, tuple]:
+    """`trees` on each distinct device of `devices`, made once (no copy
+    on `home`): what a sharded stage reads by arbitrary index."""
+    home = torch.device(home)
+    return {d: trees if d == home else tuple(replicate(t, d) for t in trees)
+            for d in dict.fromkeys(torch.device(x) for x in devices)}
+
+
+# ----------------------------------------------------------------------
+# the dp axis: contiguous row blocks of a stage
+# ----------------------------------------------------------------------
+
+# rows per (stage, dp shard) and K1 launches per dp shard from hypothesis
+# scoring, since the last reset_dp_stats()
+DP_ROWS: collections.Counter = collections.Counter()
+DP_K1: collections.Counter = collections.Counter()
+
+# A block starts at a multiple of its device's grain, so every row keeps
+# its place in the vector loops and tiles of the device's kernels: a
+# batch of another length or start may round differently.
+# tools/batch_bits.py measures it per function of the dp stages: on an
+# H100 a ragged block of compute_patch_ncc's batch rounds some scores
+# differently, blocks of 1,024-row multiples do not; on the CPU a sum over
+# the 6 rows of a [6, B] tensor rounds its columns alike only in runs of 32.
+DP_GRAIN = {"cuda": 1024, "cpu": 32}
+
+
+def reset_dp_stats() -> None:
+    DP_ROWS.clear()
+    DP_K1.clear()
+
+
+def dp_grain(devices) -> int:
+    """The row unit of a dp block on `devices` (see DP_GRAIN)."""
+    return DP_GRAIN.get(torch.device(devices[0]).type, 1)
+
+
+def deal_rows(stage: str, n_rows: int, devices) -> List[Tuple[int, torch.device, int, int]]:
+    """The rows [0, n_rows) of `stage` dealt to `devices` in order, as
+    contiguous blocks of whole units of ``dp_grain(devices)`` (the last
+    block ends at n_rows; the units split as evenly as they go, earlier
+    blocks taking the extra ones; a block may be empty). Counts each
+    block's rows in DP_ROWS[stage, shard]. Returns (shard, device,
+    start, stop) per block: ``shard_rows``' sibling for a row range."""
+    devices = [torch.device(d) for d in devices]
+    g = dp_grain(devices)
+    units = -(-n_rows // g)
+    per, extra = divmod(units, len(devices))
+    out, u = [], 0
+    for i, d in enumerate(devices):
+        nu = per + (i < extra)
+        s, e = min(u * g, n_rows), min((u + nu) * g, n_rows)
+        u += nu
+        DP_ROWS[stage, i] += e - s
+        out.append((i, d, s, e))
+    return out
+
+
+def row_blocks(stage: str, n_rows: int, dp_devices, home, *trees):
+    """The non-empty blocks of a row pass over [0, n_rows) with `trees`
+    on each block's device (``deal_rows``, ``replicas``): (device,
+    start, stop, trees there); one whole block on `home` without
+    `dp_devices`."""
+    home = torch.device(home)
+    on = replicas(dp_devices or [home], home, *trees)
+    blocks = deal_rows(stage, n_rows, dp_devices) if dp_devices else [(0, home, 0, n_rows)]
+    return [(d, s, e, on[d]) for _, d, s, e in blocks if s < e]
+
+
+def merge_top(parts: Sequence[Tuple[torch.Tensor, ...]], home, k: int):
+    """The first `k` of the blocks' candidates (each block's (priority,
+    *payload) already cut to its own first k by a stable descending sort
+    of the priority) in the order a stable descending sort of all
+    candidates gives: ties fall to the earlier block, and within a block
+    to its order, as they do in one sort over the concatenated rows.
+    Returns (priority, *payload) on `home`."""
+    cols = [all_gather_rows([p[i] for p in parts], home) for i in range(len(parts[0]))]
+    top = torch.sort(cols[0], descending=True, stable=True).indices[:k]
+    return tuple(c[top] for c in cols)
 
 
 # ----------------------------------------------------------------------

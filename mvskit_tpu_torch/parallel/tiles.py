@@ -16,7 +16,8 @@ those grids are split by cell ROW over the mesh's ``tile`` axis:
     owns the donor's row; a target one row past the tile comes from the
     neighbour by the 1-row halo exchange (``shard.ppermute_rows``);
   * the hypotheses and the gauntlet run on the global grid, the tiles'
-    rows gathered once per round (``propagate.round_from_donors``).
+    rows gathered once per round (``propagate.round_from_donors``; with
+    a dp axis they, and the insertion, deal their rows to its devices).
 
 Row i of the grid belongs to tile i // gh_l; the rows are padded up to
 k * gh_l, and padded rows hold no cells. ``tiled_propagate_round`` gives
@@ -35,7 +36,7 @@ from ..core.grid import GridState
 from ..core.patches import PatchTable
 from ..image.scene import Scene
 from ..pipeline import propagate as pr
-from .shard import Mesh, all_gather_rows, ppermute_rows, psum, replicate
+from .shard import Mesh, all_gather_rows, ppermute_rows, psum, replicas
 
 NEG = pr.NEG
 
@@ -54,12 +55,6 @@ def _halo_rows(blocks, fill):
     from both neighbours (JAX tiles.py:64): (from_prev, from_next), one
     per tile, `fill`-valued at the mesh edges."""
     return ppermute_rows(blocks, fill)
-
-
-def _on_devices(devs, home, *trees):
-    """`trees` on each distinct device of `devs` (no copy on `home`)."""
-    return {d: trees if d == home else tuple(replicate(t, d) for t in trees)
-            for d in dict.fromkeys(devs)}
 
 
 def tiled_build_grid(
@@ -88,7 +83,7 @@ def tiled_build_grid(
     n = scene.n_images
     gw, _ = gridmod.grid_dims(scene, level, csize)
     home = table.coord.device
-    on = _on_devices(devs, home, scene, table)
+    on = replicas(devs, home, scene, table)
     parts = []
     for t, d in enumerate(devs):
         scn, tbl = on[d]
@@ -147,7 +142,7 @@ def tiled_select_donors(
     if n * gh * gw * S < budget:
         raise ValueError(f"donor budget {budget} exceeds the grid's {n * gh * gw * S} slots")
     home = table.coord.device
-    on = _on_devices(devs, home, table.images[:, 0], table.ncc, table.alive)
+    on = replicas(devs, home, table.images[:, 0], table.ncc, table.alive)
     vals, gflat, cand_pidx = [], [], []
     for t, d in enumerate(devs):
         images0, ncc, alive = on[d]
@@ -200,7 +195,7 @@ def tiled_full_cell_gate(
     gh_l, _ = _tile_rows(scene, level, csize, len(devs))
     gw, _ = gridmod.grid_dims(scene, level, csize)
     home = table.coord.device
-    on = _on_devices(devs, home, table.ncc, donor_img, donor_cy, donor_cx)
+    on = replicas(devs, home, table.ncc, donor_img, donor_cy, donor_cx)
     blocks = [grid.slots[:, t * gh_l:(t + 1) * gh_l, :, -1].to(d) for t, d in enumerate(devs)]
     prev, nxt = _halo_rows(blocks, fill=-1)
     fulls, worsts = [], []

@@ -91,8 +91,15 @@ class PMMVS:
 
     The mesh (cfg.mesh_dp, cfg.mesh_view, cfg.mesh_tile; JAX driver.py:
     94-158) carries the three parallel axes of ``parallel/``:
-      dp    the gauntlet's chunks are dealt to the dp devices
-            (``propagate._gauntlet_chunked``);
+      dp    every stage of a round and of the filter pass deals its
+            rows to the dp devices in contiguous blocks and merges them
+            exactly (``shard.deal_rows``): the grid build, vimages,
+            donor selection, hypothesis scoring, the gauntlet's chunks,
+            insertion and the four filter phases. On the home device
+            stay ``compact_table`` (one whole-table permutation), the
+            small-group filter's label iterations and the sort of the
+            accepted hypotheses (at most 2 x donor_budget keys), and for
+            pmvs the sector search and the effort counters;
       view  the pyramid planes are sharded and every NCC window fetch
             runs per shard (``shard.enable_view_sharding``);
       tile  pm_image rounds run ``tiles.tiled_propagate_round`` (the
@@ -289,6 +296,7 @@ class PMMVS:
             neighbor_capacity=cfg.neighbor_capacity,
             small_group_iters=cfg.small_group_iters,
             row_limit=R, neighbor_rows=min(hwm + 1, N),
+            dp_devices=self._dp_devices,
         )
         self.table = t
         self.log(

@@ -29,6 +29,7 @@ from ..core import grid as gridmod
 from ..core.patches import PatchTable, count_valid
 from ..image.scene import Scene
 from ..ops import sampling
+from ..parallel import shard as sh
 from . import filters as fl
 from . import propagate as pr
 from . import views as vw
@@ -148,6 +149,38 @@ def update_counts(scene: Scene, counts, coord, images, vimages, ok,
     return flat[:size].reshape(n, gh, gw)
 
 
+def _donor_rows(table: PatchTable, first: int, ncc_threshold, budget: int):
+    """The first `budget` of table rows [first, first + len(table)) by a
+    stable descending sort of their score2 priority (-inf where dead or
+    without views). Returns (priority, row)."""
+    prio = torch.where(
+        table.alive & (count_valid(table.images) > 0),
+        fl.score2(table, ncc_threshold),
+        torch.full_like(table.ncc, -math.inf),
+    )
+    top = torch.sort(prio, descending=True, stable=True).indices[:budget]
+    return prio[top], top + first
+
+
+def select_donor_rows(table: PatchTable, ncc_threshold, budget: int, dp_devices=None):
+    """Donor selection: priority = score2 (the reference's queue order,
+    patch_manager.cpp:107-121), the top `budget` with ties to the lower
+    row (lax.top_k's order, -inf rows included): a stable descending sort.
+    `dp_devices` deals the table's rows in contiguous blocks
+    (``shard.deal_rows``), each keeping its own top `budget`, merged in
+    block order by the same sort (``shard.merge_top``).
+    Returns (rows int32 [budget], ok [budget])."""
+    if not dp_devices:
+        prio, rows = _donor_rows(table, 0, ncc_threshold, budget)
+    else:
+        home = table.coord.device
+        parts = [_donor_rows(PatchTable(*(x[s:e].to(d) for x in table)), s,
+                             ncc_threshold, budget)
+                 for _, d, s, e in sh.deal_rows("pmvs_donors", table.capacity, dp_devices)]
+        prio, rows = sh.merge_top(parts, home, budget)
+    return rows.to(torch.int32), prio > -math.inf
+
+
 def expand_round(
     scene: Scene, table: PatchTable, state: ExpandState, noise: pr.RoundNoise,
     p: pr.PropagateParams, ncc_threshold, ncc_threshold_before,
@@ -157,24 +190,17 @@ def expand_round(
     """One PMVS-style expansion round: donors by score2 priority ->
     empty-sector candidates -> checkCounts throttle -> gauntlet ->
     updateCounts + insertion. `noise.refine` gives the gauntlet's chunk
-    draws; `row_limit` bounds the live table rows and `dp_devices` deals
-    the gauntlet's chunks as in ``propagate_round``."""
+    draws; `row_limit` bounds the live table rows. `dp_devices`
+    partitions the grid build, the donor sort, the gauntlet and the
+    insertion as in ``propagate_round``; the sector search, the count
+    throttle and the count update (one batch of budget / 6 donors and
+    their candidates each) run on the table's device."""
     grid = gridmod.build_grid(scene, table, p.level, p.csize, p.cell_capacity,
-                              row_limit=row_limit)
+                              row_limit=row_limit, dp_devices=dp_devices)
     table = table._replace(alive=table.alive & ~grid.evicted)
 
-    # donor selection: priority = score2 (the reference's queue order,
-    # patch_manager.cpp:107-121), the top `budget` with ties to the lower
-    # row (lax.top_k's order, -inf rows included): a stable descending sort
-    prio = torch.where(
-        table.alive & (count_valid(table.images) > 0),
-        fl.score2(table, ncc_threshold),
-        torch.full_like(table.ncc, -math.inf),
-    )
     budget = max(p.donor_budget // N_SECTORS, 1)
-    donor_rows = torch.sort(prio, descending=True, stable=True).indices[:budget]
-    donor_ok = prio[donor_rows] > -math.inf
-    donor_rows = donor_rows.to(torch.int32)
+    donor_rows, donor_ok = select_donor_rows(table, ncc_threshold, budget, dp_devices)
 
     cand, empty = find_empty_sectors(
         scene, grid, table, donor_rows, p.level, p.csize,
@@ -207,7 +233,7 @@ def expand_round(
     )
     counts = update_counts(scene, state.counts, out.coord, out.images,
                            out.vimages, out.ok, p.level, p.csize)
-    table = pr.insert_patches(table, out)
+    table = pr.insert_patches(table, out, dp_devices)
     stats = pr.RoundStats(
         total=int(ok.sum()), fail0=int(out.fail0.sum()),
         fail1=int(out.fail1.sum()), passed=int(out.ok.sum()),

@@ -11,7 +11,13 @@
     min-label propagation with path halving (filter.cpp:432-578).
 
 Row passes run in chunks; the chunk size bounds memory and does not
-change the result.
+change the result. With `dp_devices` (the mesh's dp axis) every phase
+deals its scanned rows to those devices in contiguous blocks
+(``parallel/shard.deal_rows``), each against one replica of the scene,
+grid and table per distinct device. Every phase reads the table as it
+was at the start of its pass, so the blocks are independent; their
+results join in row order. The small-group filter's min-label
+iterations over the [N] label vector stay on the table's device.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from ..core.patches import PatchTable, count_valid
 from ..geometry import camera as cam
 from ..image.scene import Scene
 from ..ops.ncc import compute_units
+from ..parallel import shard as sh
 from . import views as vw
 
 INF = float(1e30)
@@ -155,29 +162,35 @@ def gain_batch(
 
 
 def compute_gains(scene, grid, table, level, csize, ncc_threshold,
-                  neighbor_threshold1, chunk: int = 1024, row_limit=None):
+                  neighbor_threshold1, chunk: int = 1024, row_limit=None,
+                  dp_devices=None):
     """Filter::computeGain for every table row, in row chunks; rows past
     `row_limit` (dead by the compacted-table invariant) get gain 0."""
     cap = table.capacity
     N = cap if row_limit is None else min(row_limit, cap)
-    out = torch.zeros(cap, dtype=torch.float32, device=table.coord.device)
-    for s in range(0, N, chunk):
-        rs = torch.arange(s, min(s + chunk, N), device=table.coord.device)
-        out[s:s + rs.shape[0]] = gain_batch(
-            scene, grid, table,
-            table.coord[rs], table.normal[rs], table.dscale[rs],
-            table.ncc[rs], table.images[rs], table.vimages[rs],
-            rs.to(torch.int32), level, csize, ncc_threshold,
-            neighbor_threshold1,
-        )
+    home = table.coord.device
+    out = torch.zeros(cap, dtype=torch.float32, device=home)
+    for d, b0, b1, (scn, grd, tbl) in sh.row_blocks("outside", N, dp_devices, home,
+                                                  scene, grid, table):
+        for s in range(b0, b1, chunk):
+            rs = torch.arange(s, min(s + chunk, b1), device=d)
+            out[s:s + rs.shape[0]] = gain_batch(
+                scn, grd, tbl,
+                tbl.coord[rs], tbl.normal[rs], tbl.dscale[rs],
+                tbl.ncc[rs], tbl.images[rs], tbl.vimages[rs],
+                rs.to(torch.int32), level, csize, ncc_threshold,
+                neighbor_threshold1,
+            ).to(home)
     return out
 
 
 def filter_outside(scene, grid, table, level, csize, ncc_threshold,
-                   neighbor_threshold1, row_limit=None) -> Tuple[PatchTable, int]:
+                   neighbor_threshold1, row_limit=None,
+                   dp_devices=None) -> Tuple[PatchTable, int]:
     """Remove patches with negative gain (filter.cpp:51-97)."""
     gains = compute_gains(scene, grid, table, level, csize, ncc_threshold,
-                          neighbor_threshold1, row_limit=row_limit)
+                          neighbor_threshold1, row_limit=row_limit,
+                          dp_devices=dp_devices)
     kill = table.alive & (gains < 0.0)
     return table._replace(alive=table.alive & ~kill), int(kill.sum())
 
@@ -189,7 +202,7 @@ def filter_outside(scene, grid, table, level, csize, ncc_threshold,
 def filter_exact(
     scene, grid, table, level, csize, wsize, min_image_num,
     neighbor_threshold1, angle_threshold1, use_depth: bool = True,
-    row_limit=None, chunk: int = 8192,
+    row_limit=None, chunk: int = 8192, dp_devices=None,
 ) -> Tuple[PatchTable, int]:
     """Per-(patch, view) exact visibility (filter.cpp:148-263): a view
     survives if the patch passes isVisible in its cell or any 4-neighbor
@@ -197,29 +210,17 @@ def filter_exact(
     reference view (setRefImage)."""
     cap, M = table.images.shape
     N = cap if row_limit is None else min(row_limit, cap)
+    home = table.coord.device
     new_images = torch.full_like(table.images, -1)
-    enough = torch.zeros(cap, dtype=torch.bool, device=table.coord.device)
-    for s in range(0, N, chunk):
-        e = min(s + chunk, N)
-        coord, normal, images = table.coord[s:e], table.normal[s:e], table.images[s:e]
-        cx, cy, valid = gridmod.patch_cells(scene, coord, images, level, csize)
-        img = images.clamp(min=0)
-
-        def vis_at(dx, dy):
-            return gridmod.is_visible(
-                scene, grid, table, coord.unsqueeze(1), normal.unsqueeze(1),
-                img, cx + dx, cy + dy, neighbor_threshold1, level, csize,
-                use_depth,
-            )
-
-        safe = (vis_at(0, 0) | vis_at(-1, 0) | vis_at(1, 0)
-                | vis_at(0, -1) | vis_at(0, 1))
-        ni = vw.compact_list(images, valid & safe)
-        en = count_valid(ni) >= min_image_num
-        ni = vw.set_ref_image(scene, coord, normal, ni, level, wsize,
-                              angle_threshold1)
-        new_images[s:e] = torch.where(en.unsqueeze(1), ni, torch.full_like(ni, -1))
-        enough[s:e] = en
+    enough = torch.zeros(cap, dtype=torch.bool, device=home)
+    for _, b0, b1, (scn, grd, tbl) in sh.row_blocks("exact", N, dp_devices, home,
+                                                  scene, grid, table):
+        for s in range(b0, b1, chunk):
+            e = min(s + chunk, b1)
+            ni, en = _exact_rows(scn, grd, tbl, s, e, level, csize, wsize, min_image_num,
+                                 neighbor_threshold1, angle_threshold1, use_depth)
+            new_images[s:e] = ni.to(home)
+            enough[s:e] = en.to(home)
     killed = table.alive & ~enough
     return (
         table._replace(
@@ -228,6 +229,29 @@ def filter_exact(
         ),
         int(killed.sum()),
     )
+
+
+def _exact_rows(scene, grid, table, s, e, level, csize, wsize, min_image_num,
+                neighbor_threshold1, angle_threshold1, use_depth):
+    """filter_exact's new view lists and survival of table rows [s, e)."""
+    coord, normal, images = table.coord[s:e], table.normal[s:e], table.images[s:e]
+    cx, cy, valid = gridmod.patch_cells(scene, coord, images, level, csize)
+    img = images.clamp(min=0)
+
+    def vis_at(dx, dy):
+        return gridmod.is_visible(
+            scene, grid, table, coord.unsqueeze(1), normal.unsqueeze(1),
+            img, cx + dx, cy + dy, neighbor_threshold1, level, csize,
+            use_depth,
+        )
+
+    safe = (vis_at(0, 0) | vis_at(-1, 0) | vis_at(1, 0)
+            | vis_at(0, -1) | vis_at(0, 1))
+    ni = vw.compact_list(images, valid & safe)
+    en = count_valid(ni) >= min_image_num
+    ni = vw.set_ref_image(scene, coord, normal, ni, level, wsize,
+                          angle_threshold1)
+    return torch.where(en.unsqueeze(1), ni, torch.full_like(ni, -1)), en
 
 
 # ----------------------------------------------------------------------
@@ -374,30 +398,33 @@ def quad_residuals_batch(scene, table, coord, normal, images, nbrs, level: int, 
 def filter_neighbor_rows(
     scene, grid, table, row_offset: int, row_count: int, level, csize, tau,
     quad_threshold, neighbor_threshold, max_neighbors: int = 48,
-    chunk: int = 1024, cand_cap: int = 1024,
+    chunk: int = 1024, cand_cap: int = 1024, dp_devices=None,
 ) -> Tuple[PatchTable, int]:
     """filterNeighbor (filter.cpp:265-327) over rows [row_offset,
     row_offset + row_count): fewer than 6 scene-space neighbors, or a
     too-large quadric residual, kills the patch. Every chunk sees the
     table as it was at the start of the pass; kills apply at the end."""
     N = table.capacity
-    dev = table.coord.device
-    rows_all = (row_offset + torch.arange(row_count, device=dev)) % N
-    reject = torch.zeros(row_count, dtype=torch.bool, device=dev)
-    for s in range(0, row_count, chunk):
-        rows = rows_all[s:s + chunk]
-        nbrs, count = gather_neighbors_batch(
-            scene, grid, table, table.coord[rows], table.normal[rows],
-            table.dscale[rows], table.images[rows], rows.to(torch.int32),
-            level, csize, margin=2, scale=4.0,
-            neighbor_threshold=neighbor_threshold,
-            max_neighbors=max_neighbors, cand_cap=cand_cap,
-        )
-        resid, denom = quad_residuals_batch(
-            scene, table, table.coord[rows], table.normal[rows],
-            table.images[rows], nbrs, level, tau,
-        )
-        reject[s:s + rows.shape[0]] = (count < 6) | ((denom >= 1) & (resid >= quad_threshold))
+    home = table.coord.device
+    rows_all = (row_offset + torch.arange(row_count, device=home)) % N
+    reject = torch.zeros(row_count, dtype=torch.bool, device=home)
+    for d, b0, b1, (scn, grd, tbl) in sh.row_blocks("neighbor", row_count, dp_devices, home,
+                                                  scene, grid, table):
+        for s in range(b0, b1, chunk):
+            rows = rows_all[s:min(s + chunk, b1)].to(d)
+            nbrs, count = gather_neighbors_batch(
+                scn, grd, tbl, tbl.coord[rows], tbl.normal[rows],
+                tbl.dscale[rows], tbl.images[rows], rows.to(torch.int32),
+                level, csize, margin=2, scale=4.0,
+                neighbor_threshold=neighbor_threshold,
+                max_neighbors=max_neighbors, cand_cap=cand_cap,
+            )
+            resid, denom = quad_residuals_batch(
+                scn, tbl, tbl.coord[rows], tbl.normal[rows],
+                tbl.images[rows], nbrs, level, tau,
+            )
+            reject[s:s + rows.shape[0]] = (
+                (count < 6) | ((denom >= 1) & (resid >= quad_threshold))).to(home)
     kill = table.alive[rows_all] & reject
     alive = table.alive.clone()
     alive[rows_all] = table.alive[rows_all] & ~reject
@@ -408,24 +435,16 @@ def filter_neighbor_rows(
 # filterSmallGroups
 # ----------------------------------------------------------------------
 
-def filter_small_groups(
-    scene, grid, table, level, csize, neighbor_threshold2, iters: int = 32,
-    row_limit=None, chunk: int = 2048,
-) -> Tuple[PatchTable, int]:
-    """filterSmallGroups (filter.cpp:432-578): connected components
-    under isNeighbor over the reference-view 3x3 cell graph; components
-    smaller than max(20, alive/10000) are removed. BFS becomes min-label
-    propagation with path halving."""
-    cap, M = table.images.shape
-    N = cap if row_limit is None else min(row_limit, cap)
+def _group_candidates(scene, grid, table, s: int, e: int, level, csize):
+    """The 3x3 reference-view cell neighbourhood's slot and vslot
+    occupants of table rows [s, e) (-1 where empty or off the grid),
+    and those rows' reference units. Returns (cand [e - s, 18 S],
+    ref_unit [e - s])."""
     gh, gw = grid.slots.shape[1], grid.slots.shape[2]
-    dev = table.coord.device
-
-    ref_list = table.images[:N, :1]
-    cx, cy, valid = gridmod.patch_cells(scene, table.coord[:N], ref_list, level, csize)
+    ref_list = table.images[s:e, :1]
+    cx, cy, valid = gridmod.patch_cells(scene, table.coord[s:e], ref_list, level, csize)
     cx, cy, valid = cx[:, 0], cy[:, 0], valid[:, 0]
-    img = table.images[:N, 0].clamp(min=0).long()
-
+    img = table.images[s:e, 0].clamp(min=0).long()
     cands = []
     for dy in (-1, 0, 1):
         for dx in (-1, 0, 1):
@@ -435,24 +454,49 @@ def filter_small_groups(
             for slots in (grid.slots, grid.vslots):
                 c = slots[img, tyc, txc]
                 cands.append(torch.where(inb, c, torch.full_like(c, -1)))
-    cand = torch.cat(cands, dim=1)  # [N, Kc]
-    cidx = cand.clamp(0, N - 1).long()
-    me = torch.arange(N, device=dev)
-    ref_unit_all = _ref_unit(scene, table, me, level)  # [N]
+    rows = torch.arange(s, e, device=table.coord.device)
+    return torch.cat(cands, dim=1), _ref_unit(scene, table, rows, level)
+
+
+def filter_small_groups(
+    scene, grid, table, level, csize, neighbor_threshold2, iters: int = 32,
+    row_limit=None, chunk: int = 2048, dp_devices=None,
+) -> Tuple[PatchTable, int]:
+    """filterSmallGroups (filter.cpp:432-578): connected components
+    under isNeighbor over the reference-view 3x3 cell graph; components
+    smaller than max(20, alive/10000) are removed. BFS becomes min-label
+    propagation with path halving. With `dp_devices` each block gathers
+    its rows' candidates and tests their edges (``is_neighbor_pairs``);
+    the label iterations run on the table's device."""
+    cap, M = table.images.shape
+    N = cap if row_limit is None else min(row_limit, cap)
+    dev = table.coord.device
+    blocks = sh.row_blocks("groups", N, dp_devices, dev, scene, grid, table)
+    parts = [_group_candidates(scn, grd, tbl, s, e, level, csize)
+             for _, s, e, (scn, grd, tbl) in blocks]
+    cand = sh.all_gather_rows([c for c, _ in parts], dev)  # [N, Kc]
+    ref_unit_all = sh.all_gather_rows([u for _, u in parts], dev)  # [N]
+    units = sh.replicas([d for d, *_ in blocks], dev, ref_unit_all)
 
     edge = torch.empty(cand.shape, dtype=torch.bool, device=dev)
-    for s in range(0, N, chunk):
-        rs = me[s:s + chunk]
-        cc = cidx[rs]
-        hunit = (ref_unit_all[rs].unsqueeze(1) + ref_unit_all[cc]) / 2.0 * csize
-        edge[s:s + rs.shape[0]] = (
-            (cand[rs] >= 0)
-            & table.alive[cc]
-            & table.alive[rs].unsqueeze(1)
-            & is_neighbor_pairs(scene, table, rs.unsqueeze(1), cc, hunit,
-                                neighbor_threshold2)
-        )
+    for (d, b0, b1, (scn, _, tbl)), (bcand, _) in zip(blocks, parts):
+        ru = units[d][0]
+        for s in range(b0, b1, chunk):
+            e = min(s + chunk, b1)
+            rs = torch.arange(s, e, device=d)
+            cr = bcand[s - b0:e - b0]
+            cc = cr.clamp(0, N - 1).long()
+            hunit = (ru[rs].unsqueeze(1) + ru[cc]) / 2.0 * csize
+            edge[s:e] = (
+                (cr >= 0)
+                & tbl.alive[cc]
+                & tbl.alive[rs].unsqueeze(1)
+                & is_neighbor_pairs(scn, tbl, rs.unsqueeze(1), cc, hunit,
+                                    neighbor_threshold2)
+            ).to(dev)
 
+    cidx = cand.clamp(0, N - 1).long()
+    me = torch.arange(N, device=dev)
     alive_n = table.alive[:N]
     label = torch.where(alive_n, me, torch.full_like(me, N))
     bigN = torch.full_like(cidx, N)
@@ -485,20 +529,21 @@ class FilterStats(NamedTuple):
 
 
 def rebuild(scene, table, level, csize, capacity, neighbor_threshold,
-            additive: bool, use_depth: bool = True, row_limit=None):
+            additive: bool, use_depth: bool = True, row_limit=None,
+            dp_devices=None):
     """setDepthMapsVGridsVPGridsAddPatchV (filter.cpp:628-655): rebuild
     depth maps, (re)derive vimages (cleared first when additive=0), and
     rebuild the v-grids."""
     if not additive:
         table = table._replace(vimages=torch.full_like(table.vimages, -1))
     grid = gridmod.build_grid(scene, table, level, csize, capacity,
-                              row_limit=row_limit)
+                              row_limit=row_limit, dp_devices=dp_devices)
     vimages = gridmod.set_vimages(scene, grid, table, level, csize,
                                   neighbor_threshold, use_depth,
-                                  row_limit=row_limit)
+                                  row_limit=row_limit, dp_devices=dp_devices)
     table = table._replace(vimages=vimages)
     grid = gridmod.build_grid(scene, table, level, csize, capacity,
-                              row_limit=row_limit)
+                              row_limit=row_limit, dp_devices=dp_devices)
     return table, grid
 
 
@@ -508,26 +553,29 @@ def run_filters(
     neighbor_threshold2, angle_threshold1, neighbor_chunk: int = 1024,
     neighbor_cand_cap: int = 1024, neighbor_capacity: int = 48,
     small_group_iters: int = 32, row_limit=None, neighbor_rows=None,
+    dp_devices=None,
 ) -> Tuple[PatchTable, FilterStats]:
     """Filter::run (filter.cpp:25-49): rebuild -> outside -> rebuild ->
     exact -> rebuild -> neighbor -> rebuild -> groups -> rebuild.
     `row_limit` bounds the rows every phase scans (compacted-table
     invariant); `neighbor_rows` (default: the same bound) the rows the
-    neighbor filter tests."""
+    neighbor filter tests. `dp_devices` partitions every phase's rows
+    (the module docstring)."""
     R = row_limit
+    dp = dict(dp_devices=dp_devices)
 
     def rb(t, additive):
         return rebuild(scene, t, level, csize, cell_capacity,
-                       neighbor_threshold, additive=additive, row_limit=R)
+                       neighbor_threshold, additive=additive, row_limit=R, **dp)
 
     table, grid = rb(table, False)
     table, n_out = filter_outside(scene, grid, table, level, csize,
                                   ncc_threshold, neighbor_threshold1,
-                                  row_limit=R)
+                                  row_limit=R, **dp)
     table, grid = rb(table, True)
     table, n_exact = filter_exact(scene, grid, table, level, csize, wsize,
                                   min_image_num, neighbor_threshold1,
-                                  angle_threshold1, row_limit=R)
+                                  angle_threshold1, row_limit=R, **dp)
     table, grid = rb(table, True)
     rows = table.capacity if R is None else min(R, table.capacity)
     if neighbor_rows is not None:
@@ -535,12 +583,12 @@ def run_filters(
     table, n_nb = filter_neighbor_rows(
         scene, grid, table, 0, rows, level, csize, tau, quad_threshold,
         neighbor_threshold, max_neighbors=neighbor_capacity,
-        chunk=neighbor_chunk, cand_cap=neighbor_cand_cap,
+        chunk=neighbor_chunk, cand_cap=neighbor_cand_cap, **dp,
     )
     table, grid = rb(table, True)
     table, n_grp = filter_small_groups(scene, grid, table, level, csize,
                                        neighbor_threshold2,
-                                       iters=small_group_iters, row_limit=R)
+                                       iters=small_group_iters, row_limit=R, **dp)
     table, _ = rb(table, True)
     return table, FilterStats(n_out, n_exact, n_nb, n_grp)
 

@@ -26,8 +26,9 @@ from ..core import grid as gridmod
 from ..core.patches import PatchTable, count_valid
 from ..geometry import camera as cam
 from ..image.scene import Scene
+from ..ops import cuda_ncc
 from ..ops import ncc as nccops
-from ..parallel.shard import replicate
+from ..parallel import shard as sh
 from . import refine as rf
 from . import views as vw
 
@@ -123,34 +124,56 @@ def donor_priority(ncc_vals, slot_rank, ok, policy: str):
     return torch.where(ok, prio, torch.full_like(prio, NEG))
 
 
+def _donor_candidates(slots, first: int, images0, ncc, alive, S: int, per_img: int,
+                      budget: int, policy: str):
+    """The first `budget` of the flat slots [first, first + len(slots)) by
+    a stable descending sort of their donation priority (ties to the
+    lower slot index, lax.top_k's order). A slot donates only when the
+    grid's image is the patch's reference view (propagate.cpp:104).
+    Returns (priority, flat slot index, pidx, ok) of those slots."""
+    pidx = slots.clamp(min=0).long()
+    ar = torch.arange(first, first + slots.shape[0], device=slots.device)
+    ok = (slots >= 0) & (images0[pidx].long() == ar // per_img) & alive[pidx]
+    prio = donor_priority(ncc[pidx], ar % S, ok, policy)
+    top = torch.sort(prio, descending=True, stable=True).indices[:budget]
+    return prio[top], ar[top], pidx[top], ok[top]
+
+
 def select_donors(scene: Scene, grid: gridmod.GridState, table: PatchTable,
-                  budget: int, policy: str = "cell_first"):
+                  budget: int, policy: str = "cell_first", dp_devices=None):
     """Pick `budget` donor (patch, cell) slots in priority order, ties
     to the lower slot index (lax.top_k's order): a stable descending
     sort and a slice. A slot donates only when the grid's image is the
-    patch's reference view (propagate.cpp:104).
+    patch's reference view (propagate.cpp:104). `dp_devices` deals the
+    flat slots in contiguous blocks (``shard.deal_rows``): each block
+    keeps its own first `budget` by the same sort and the candidates
+    merge by it in block order (``shard.merge_top``), which is exact: a
+    slot a block drops has `budget` better ones before it.
     Returns (pidx, img, cy, cx, ok), each [budget]."""
     n, gh, gw, S = grid.slots.shape
     flat = grid.slots.reshape(-1)
-    pidx = flat.clamp(min=0).long()
-    ar = torch.arange(flat.shape[0], device=flat.device)
-    slot_img = ar // (gh * gw * S)
-    is_ref = table.images[pidx, 0].long() == slot_img
-    ok = (flat >= 0) & is_ref & table.alive[pidx]
-    prio = donor_priority(table.ncc[pidx], ar % S, ok, policy)
-    top = torch.sort(prio, descending=True, stable=True).indices[:budget]
+    home = flat.device
+    args = (table.images[:, 0], table.ncc, table.alive)
+    if not dp_devices:
+        _, top, pidx, ok = _donor_candidates(flat, 0, *args, S, gh * gw * S, budget, policy)
+    else:
+        on = sh.replicas(dp_devices, home, args)
+        parts = [_donor_candidates(flat[s:e].to(d), s, *on[d][0], S, gh * gw * S, budget,
+                                   policy)
+                 for _, d, s, e in sh.deal_rows("donors", flat.shape[0], dp_devices)]
+        _, top, pidx, ok = sh.merge_top(parts, home, budget)
     cell = top // S
     img = cell // (gh * gw)
     rem = cell % (gh * gw)
     i32 = lambda x: x.to(torch.int32)  # noqa: E731
-    return i32(pidx[top]), i32(img), i32(rem // gw), i32(rem % gw), ok[top]
+    return i32(pidx), i32(img), i32(rem // gw), i32(rem % gw), ok
 
 
 def generate_hypotheses(scene: Scene, table: PatchTable, grid: gridmod.GridState,
                         donor_pidx, donor_img, donor_cy, donor_cx, donor_ok,
                         axis: int, direction: int, jitter, p: PropagateParams,
                         generator: Optional[torch.Generator] = None,
-                        gate_full=None, gate_worst_ncc=None):
+                        gate_full=None, gate_worst_ncc=None, dp_devices=None):
     """generatePatch for a donor batch (propagate.cpp:126-237): jittered
     target-cell pixel, depth transfer along the new ray, copied normal,
     view list re-projected (OOB views dropped), initial NCC; a full
@@ -160,9 +183,34 @@ def generate_hypotheses(scene: Scene, table: PatchTable, grid: gridmod.GridState
     supply that full-cell gate per donor (the tile-sharded round, whose
     target cell's worst incumbent comes by halo exchange,
     parallel/tiles.py; JAX propagate.py:144-192); else it is read from
-    `grid`. Returns (coord, normal, images, ncc0, ok)."""
+    `grid`. `dp_devices` deals the donors in contiguous blocks
+    (``shard.deal_rows``): each dp device re-projects its donors, scores
+    them (K1 there; ``shard.DP_K1`` counts its launches) and gates them
+    against a replica of the table and grid, and the blocks join in
+    donor order. Returns (coord, normal, images, ncc0, ok)."""
     if jitter is None:
         jitter = TorchNoise(generator).jitter(axis, donor_pidx.shape[0])
+    donors = (donor_pidx, donor_img, donor_cy, donor_cx, donor_ok, jitter)
+    gates = None if gate_full is None else (gate_full, gate_worst_ncc)
+    if not dp_devices:
+        return _hypotheses(scene, table, grid, donors, gates, axis, direction, p)
+    home = table.coord.device
+    on = sh.replicas(dp_devices, home, scene, table, grid)
+    parts = []
+    for i, d, s, e in sh.deal_rows("hypotheses", donor_pidx.shape[0], dp_devices):
+        if s == e:
+            continue
+        block = lambda xs: tuple(x[s:e].to(d) for x in xs)  # noqa: E731
+        k1 = cuda_ncc.LAUNCHES["ungrouped"]
+        parts.append(_hypotheses(*on[d], block(donors), gates and block(gates), axis,
+                                 direction, p))
+        sh.DP_K1[i] += cuda_ncc.LAUNCHES["ungrouped"] - k1
+    return tuple(sh.all_gather_rows([pt[j] for pt in parts], home) for j in range(5))
+
+
+def _hypotheses(scene, table, grid, donors, gates, axis, direction, p: PropagateParams):
+    """generate_hypotheses on one device."""
+    donor_pidx, donor_img, donor_cy, donor_cx, donor_ok, jitter = donors
     gw, gh = gridmod.grid_dims(scene, p.level, p.csize)
     tx = donor_cx + (direction if axis == 0 else 0)
     ty = donor_cy + (direction if axis == 1 else 0)
@@ -189,11 +237,13 @@ def generate_hypotheses(scene: Scene, table: PatchTable, grid: gridmod.GridState
         scene, images, coord, normal, p.level, p.wsize, p.tau,
         p.angle_threshold1, n_illums=p.n_illums,
     )
-    if gate_full is None:
+    if gates is None:
         worst = grid.slots[dimg, ty.clamp(0, gh - 1).long(),
                            tx.clamp(0, gw - 1).long(), p.cell_capacity - 1]
         gate_full = worst >= 0
         gate_worst_ncc = table.ncc[worst.clamp(min=0).long()]
+    else:
+        gate_full, gate_worst_ncc = gates
     beats = ncc0 > gate_worst_ncc
     ok = donor_ok & inb & has_views & (~gate_full | beats)
     return coord, normal, images, ncc0, ok
@@ -280,16 +330,13 @@ def run_gauntlet(scene, grid, table, coord, normal, images, ok_in, deltas,
     )
 
 
-def insert_patches(table: PatchTable, out: GauntletOut) -> PatchTable:
-    """Fill accepted hypotheses into dead rows of the table, best NCC
-    first (stable, ties in hypothesis order); overflow beyond the free
-    rows drops."""
+def _insert_block(rows: PatchTable, dead_before, out: GauntletOut, acc_order, n_acc):
+    """insert_patches on a block of table rows: a dead row's rank among
+    the dead rows is its rank in the block plus `dead_before`, the dead
+    rows of the earlier blocks."""
     B = out.ok.shape[0]
-    dead = ~table.alive
-    dead_rank = torch.cumsum(dead.to(torch.int64), 0) - 1
-    acc_key = torch.where(out.ok, -out.ncc, torch.full_like(out.ncc, 1e30))
-    acc_order = torch.sort(acc_key, stable=True).indices
-    n_acc = out.ok.sum()
+    dead = ~rows.alive
+    dead_rank = torch.cumsum(dead.to(torch.int64), 0) - 1 + dead_before
     take = acc_order[dead_rank.clamp(0, B - 1)]
     write = dead & (dead_rank < n_acc)
 
@@ -298,15 +345,40 @@ def insert_patches(table: PatchTable, out: GauntletOut) -> PatchTable:
         return torch.where(m, new[take], old)
 
     return PatchTable(
-        coord=mix(table.coord, out.coord),
-        normal=mix(table.normal, out.normal),
-        ncc=mix(table.ncc, out.ncc),
-        dscale=mix(table.dscale, out.dscale),
-        ascale=mix(table.ascale, out.ascale),
-        images=mix(table.images, out.images),
-        vimages=mix(table.vimages, out.vimages),
-        alive=table.alive | write,
+        coord=mix(rows.coord, out.coord),
+        normal=mix(rows.normal, out.normal),
+        ncc=mix(rows.ncc, out.ncc),
+        dscale=mix(rows.dscale, out.dscale),
+        ascale=mix(rows.ascale, out.ascale),
+        images=mix(rows.images, out.images),
+        vimages=mix(rows.vimages, out.vimages),
+        alive=rows.alive | write,
     )
+
+
+def insert_patches(table: PatchTable, out: GauntletOut, dp_devices=None) -> PatchTable:
+    """Fill accepted hypotheses into dead rows of the table, best NCC
+    first (stable, ties in hypothesis order); overflow beyond the free
+    rows drops. The order of the accepted hypotheses (one stable sort of
+    their keys) is made once on the table's device; `dp_devices` deals
+    the table's rows in contiguous blocks (``shard.deal_rows``), each
+    writing only its own rows, its dead ranks offset by the dead rows of
+    the earlier blocks, and the blocks join in row order."""
+    acc_key = torch.where(out.ok, -out.ncc, torch.full_like(out.ncc, 1e30))
+    acc_order = torch.sort(acc_key, stable=True).indices
+    n_acc = out.ok.sum()
+    if not dp_devices:
+        return _insert_block(table, 0, out, acc_order, n_acc)
+    home = table.coord.device
+    blocks = [b for b in sh.deal_rows("insert", table.capacity, dp_devices) if b[2] < b[3]]
+    on = sh.replicas(dp_devices, home, out, acc_order, n_acc)
+    dead = [(~table.alive[s:e].to(d)).sum().to(home) for _, d, s, e in blocks]
+    before = torch.cumsum(torch.stack(dead), 0) - torch.stack(dead)
+    parts = [_insert_block(PatchTable(*(x[s:e].to(d) for x in table)), before[j].to(d),
+                           *on[d])
+             for j, (_, d, s, e) in enumerate(blocks)]
+    return PatchTable(*(sh.all_gather_rows([pt[f] for pt in parts], home)
+                        for f in range(len(table))))
 
 
 def _gauntlet_chunked(scene, grid, table, coord, normal, images, ok,
@@ -324,11 +396,9 @@ def _gauntlet_chunked(scene, grid, table, coord, normal, images, ok,
     1) C] with their noise rows) runs on device i % dp against a copy of
     the scene, table and grid made once per distinct device, and its
     outputs come back to the home device in chunk order. Each chunk's
-    hypotheses are computed alone, so the result is the unsharded one
-    bit for bit. JAX's dp shards the table's rows and lets GSPMD
-    partition every stage; the port partitions this stage, which is
-    batch-parallel and the largest, and runs every other stage on the
-    home device (ROADMAP Queue 1 lists the rest)."""
+    hypotheses are computed alone, as the unsharded run computes them,
+    so the result is the unsharded one bit for bit. ``shard.DP_ROWS``
+    counts the hypotheses each dp device took."""
     H = coord.shape[0]
     C = min(p.chunk, H)
     n_chunks = (H + C - 1) // C
@@ -352,9 +422,7 @@ def _gauntlet_chunked(scene, grid, table, coord, normal, images, ok,
         cache[ch] = noise.refine(ch, n_chunks, p.refine_rounds, C,
                                  p.refine_cands).to(dev)
     devices = [dev] if not dp_devices else [torch.device(d) for d in dp_devices]
-    state = {d: (scene, grid, table) if d == dev else (
-        replicate(scene, d), replicate(grid, d), replicate(table, d))
-        for d in dict.fromkeys(devices)}
+    state = sh.replicas(devices, dev, scene, grid, table)
     for i, s in enumerate(range(0, live.numel(), C)):
         rows = live[s:s + C]
         ch_of, row_of = rows // C, rows % C
@@ -364,6 +432,8 @@ def _gauntlet_chunked(scene, grid, table, coord, normal, images, ok,
             m = ch_of == ch
             deltas[:, m] = cache[ch][:, row_of[m]]
         d = devices[i % len(devices)]
+        if dp_devices:
+            sh.DP_ROWS["gauntlet", i % len(devices)] += rows.numel()
         scn, grd, tbl = state[d]
         res = run_gauntlet(
             scn, grd, tbl, coord[rows].to(d), normal[rows].to(d),
@@ -392,16 +462,21 @@ def propagate_round(
     """One propagation round: each donor propagates into both its x- and
     y-neighbor target cell from one shared grid build and donor
     selection (propagate.cpp:106-108). Without `noise`, the round draws
-    from `generator`. `dp_devices` deals the gauntlet's chunks to the
-    mesh's dp devices (``_gauntlet_chunked``)."""
+    from `generator`. `dp_devices` partitions every stage of the round
+    over the mesh's dp devices: the grid build's rows below `row_limit`,
+    the flat slots of donor selection, the donors of hypothesis
+    generation, the gauntlet's chunks and the table rows of insertion
+    (each stage's docstring says how it merges)."""
     noise = _noise(noise, generator)
     grid = gridmod.build_grid(scene, table, p.level, p.csize,
-                              p.cell_capacity, row_limit=row_limit)
+                              p.cell_capacity, row_limit=row_limit,
+                              dp_devices=dp_devices)
     # cap enforcement kills over-capacity patches globally
     # (propagate.cpp:94-98 removePatch)
     table = table._replace(alive=table.alive & ~grid.evicted)
 
-    donors = select_donors(scene, grid, table, p.donor_budget, p.donor_policy)
+    donors = select_donors(scene, grid, table, p.donor_budget, p.donor_policy,
+                           dp_devices=dp_devices)
     return round_from_donors(
         scene, table, grid, donors, (None, None), noise, p, direction,
         ncc_threshold, ncc_threshold_before, use_depth, quad_threshold,
@@ -422,7 +497,7 @@ def round_from_donors(scene, table, grid, donors, gates, noise: RoundNoise,
         parts.append(generate_hypotheses(
             scene, table, grid, *donors, axis, direction,
             noise.jitter(axis, p.donor_budget).to(table.coord.device), p,
-            gate_full=gate_full, gate_worst_ncc=gate_worst))
+            gate_full=gate_full, gate_worst_ncc=gate_worst, dp_devices=dp_devices))
     coord, normal, images, _, ok = (
         torch.cat([pt[i] for pt in parts]) for i in range(5)
     )
@@ -431,7 +506,7 @@ def round_from_donors(scene, table, grid, donors, gates, noise: RoundNoise,
         ncc_threshold, ncc_threshold_before, use_depth, quad_threshold,
         dp_devices,
     )
-    table = insert_patches(table, out)
+    table = insert_patches(table, out, dp_devices)
     stats = RoundStats(
         total=int(ok.sum()), fail0=int(out.fail0.sum()),
         fail1=int(out.fail1.sum()), passed=int(out.ok.sum()),

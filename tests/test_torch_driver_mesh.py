@@ -2,7 +2,9 @@
 PMMVS built with a (dp, view, tile) mesh from its config runs the same
 driver path as the unsharded run (seed -> propagate -> filter -> final
 cloud) on copies of the CPU, and its cloud equals the unsharded one bit
-for bit: mesh_tile=8, (2, 2, 2), mesh_dp=2 and mesh_view=4. One port
+for bit: mesh_tile=8, (2, 2, 2), mesh_dp=2 and 3 and mesh_view=4, and
+with a dp axis every dp shard counts rows in every stage that axis
+partitions (parallel/shard.DP_ROWS). One port
 run at mesh_tile=8 against the JAX driver at mesh_tile=8 on its 8
 virtual devices (tests/test_torch_pipeline.py's run_pair, alive counts
 within 3 %). The CLI takes --mesh, and a bad --mesh is a usage error
@@ -17,6 +19,7 @@ from mvskit_tpu.utils import synthetic as jsyn
 from mvskit_tpu_torch import cli
 from mvskit_tpu_torch.config import MVSConfig
 from mvskit_tpu_torch.io import ply
+from mvskit_tpu_torch.parallel import shard as sh
 from mvskit_tpu_torch.pipeline.driver import PMMVS
 from test_torch_pipeline import assert_alive_tracks_jax, run_pair
 
@@ -57,15 +60,36 @@ def base_cloud(dataset):
     return _run(_cfg(dataset))[1]
 
 
-@pytest.mark.parametrize("mesh", [(1, 1, 8), (2, 2, 2), (2, 1, 1), (1, 4, 1)])
-def test_mesh_driver_bit_equal(dataset, base_cloud, mesh):
+@pytest.fixture(scope="module")
+def dataset_dp3(tmp_path_factory):
+    """More seeds, so that every stage scans at least 3 dp units of rows."""
+    td = str(tmp_path_factory.mktemp("ds_dp3"))
+    jsyn.write_dataset(td, n_views=4, width=96, height=64, n_seeds=160)
+    return td, _run(_cfg(td))[1]
+
+
+@pytest.mark.parametrize("mesh", [(1, 1, 8), (2, 2, 2), (2, 1, 1), (3, 1, 1), (1, 4, 1)])
+def test_mesh_driver_bit_equal(request, mesh):
     dp, view, tile = mesh
+    if dp == 3:
+        dataset, base_cloud = request.getfixturevalue("dataset_dp3")
+    else:
+        dataset, base_cloud = (request.getfixturevalue(f) for f in ("dataset", "base_cloud"))
+    sh.reset_dp_stats()
     eng, got = _run(_cfg(dataset, mesh_dp=dp, mesh_view=view, mesh_tile=tile))
     assert eng.mesh.shape == {"dp": dp, "view": view, "tile": tile}
     assert (eng.scene.view_mesh is not None) == (view > 1)
     assert got["coord"].shape[0] > 0
     for k, want in base_cloud.items():
         np.testing.assert_array_equal(got[k], want, err_msg=k)
+    # the tile axis keeps its own grid build and donor merge in the rounds;
+    # the gauntlet deals whole chunks of 128, fewer here than dp shards
+    stages = ("grid", "hypotheses", "insert", "vimages", "outside", "exact",
+              "neighbor", "groups") + (("donors",) if tile == 1 else ())
+    assert (sh.DP_ROWS["gauntlet", 0] > 0) == (dp > 1)
+    for stage in stages if dp > 1 else ():
+        rows = [sh.DP_ROWS[stage, i] for i in range(dp)]
+        assert min(rows) > 0, (stage, rows)
 
 
 def test_tile_mesh_tracks_jax_tile_mesh(dataset):

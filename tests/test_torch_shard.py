@@ -1,8 +1,8 @@
 """Meshes, placement and collectives of mvskit_tpu_torch/parallel/shard.py
 (mirrors tests/test_shard.py): view-sharded NCC at k = 2 and 4 equals the
 unsharded port bit for bit and the JAX package's view-sharded op within
-atol 1e-5 (JAX's bound); a propagation round with the gauntlet's chunks
-dealt to 8 dp devices equals the unsharded round bit for bit. Also the
+atol 1e-5 (JAX's bound); a propagation round with its stages dealt to
+8 dp devices equals the unsharded round bit for bit. Also the
 mesh's construction and its errors, placement without copies on the
 home device, and the explicit collectives. Shards are copies of the CPU,
 as the JAX tests' are virtual CPU devices."""
