@@ -68,6 +68,13 @@ Phases (any failure raises and the process exits non-zero):
      `--tiles 2` and `--dp 2`, all three equal; `tools.bench_prop_parts.run`
      on the RGB path's final .patch at dp 1 and 2, each stage's time and
      K1/K2 launches logged.
+ 12. refine tools (last): `tools.bench.run` (the refinement throughput
+     metric) at B = 8,192 on 16 x 640x480, RGB, then `--plain`, whose
+     search equals the kernel path's bit for bit and launches nothing;
+     `tools.bench_refine_parts.run` at B = 65,536 (RGB group 1 and 32,
+     luma group 32); `tools.ab_refine_chip.run` at B = 4,096 (its grouped
+     and ungrouped luma arms equal bit for bit); `tools.ab_luma.run`; and
+     one `tools.coverage_sweep.run` configuration on phase 3's dataset.
 Each path runs with the launch counters set to 0 just before it and
 read just after (launches and windows per launch of each form); each
 checks its outputs and, where the path has one, its quality against the
@@ -850,6 +857,115 @@ def bench_tools_phase(dev, workdir):
     return grid, parts
 
 
+def refine_tools_phase(dev, workdir):
+    """Phase 12: the refinement benchmark and studies, each run with the
+    launch counters set to 0 just before it and read just after:
+    (a) tools/bench.run at full size (B = 8,192, RGB): a positive value,
+        median ncc >= 0.95 on the plane sampled at its true pose, a
+        numeric vs_baseline, K1 and K2 launched;
+    (b) the same with --plain: coord, normal and ncc equal (a)'s bit for
+        bit, and no kernel launched;
+    (c) tools/bench_refine_parts at B = 65,536: RGB group 1 (K1), RGB
+        group 32 (K2), luma group 32 (K3g), every part timed and traced;
+    (d) tools/ab_refine_chip at B = 4,096: the grouped and ungrouped
+        luma arms equal bit for bit, the ungrouped one through K3u;
+    (e) tools/ab_luma at its size, and one tools/coverage_sweep
+        configuration (cell_first, 16,384 donors, 8 rounds, 1 iteration)
+        on phase 3's dataset.
+    Returns ({tool: record}, {tool: launches})."""
+    import numpy as np
+    import torch
+
+    from mvskit_tpu_torch.ops import cuda_ncc
+    from mvskit_tpu_torch.tools import ab_luma, ab_refine_chip, bench, bench_refine_parts
+    from mvskit_tpu_torch.tools import coverage_sweep
+    from mvskit_tpu_torch.tools.bench_kernel import bench_scene, bits_equal
+
+    def counted(tag, fn):
+        torch.cuda.synchronize(dev)
+        cuda_ncc.reset_launches()
+        t0 = time.time()
+        res = fn()
+        torch.cuda.synchronize(dev)
+        launches = {k: v for k, v in cuda_ncc.LAUNCHES.items() if v}
+        log(f"[refine_tools] {tag}: {time.time() - t0:.2f} s, launches {json.dumps(launches)}")
+        return res, launches
+
+    def need(tag, launches, *forms):
+        missed = [f for f in forms if launches.get(f, 0) <= 0]
+        if missed:
+            raise AssertionError(f"{tag} launched no {missed}: {launches}")
+
+    scene = bench_scene(dev)  # the 16 x 640x480 plane of (a) to (d)
+    recs, launches = {}, {}
+    (rec, kern), launches["bench"] = counted("bench", lambda: bench.run(scene=scene))
+    res = rec["result"]
+    log("[refine_tools] bench " + json.dumps({k: v for k, v in rec.items() if k != "result"}))
+    log("[refine_tools] bench " + json.dumps(res))
+    if not (res["value"] > 0 and rec["median_ncc"] >= 0.95
+            and isinstance(res["vs_baseline"], float)):
+        raise AssertionError(f"bench: {res}, median ncc {rec['median_ncc']}")
+    need("bench", launches["bench"], "ungrouped", "grouped")
+    (prec, plain), launches["bench_plain"] = counted(
+        "bench --plain", lambda: bench.run(plain=True, reps=2, scene=scene))
+    if launches["bench_plain"]:
+        raise AssertionError(f"bench --plain launched {launches['bench_plain']}")
+    for k in ("coord", "normal", "ncc"):
+        if not bits_equal(getattr(kern, k), getattr(plain, k)):
+            raise AssertionError(f"bench: the kernel path's {k} differs from the plain path's")
+    log(f"[refine_tools] bench kernel path == plain path bit for bit (coord, normal, ncc); "
+        f"{rec['ms']:.3f} ms a call ({res['value']:.1f} Msamples/s) against plain "
+        f"{prec['ms']:.3f} ms ({prec['result']['value']:.1f})")
+    recs["bench"], recs["bench_plain"] = rec, prec
+
+    for luma, group, form in ((False, 1, "ungrouped"), (False, N_CANDS, "grouped"),
+                              (True, N_CANDS, "luma_grouped")):
+        tag = f"parts_{'luma' if luma else 'rgb'}_g{group}"
+        prt, launches[tag] = counted(tag, lambda luma=luma, group=group: bench_refine_parts.run(
+            batch=65536, luma=luma, group=group, scene=scene))
+        need(tag, launches[tag], form)
+        for name, p in prt["parts"].items():
+            if not (np.isfinite(p["value"]) and p["ms"] > 0 and p["device_kernels"] > 0):
+                raise AssertionError(f"{tag} {name}: {p}")
+        log(f"[refine_tools] {tag} " + json.dumps(prt))
+        recs[tag] = prt
+
+    (arec, _, _), launches["ab_refine_chip"] = counted(
+        "ab_refine_chip", lambda: ab_refine_chip.run(scene=scene))
+    log("[refine_tools] ab_refine_chip " + json.dumps(arec))
+    if not arec["grouped_equals_ungrouped_luma"]:
+        raise AssertionError("ab_refine_chip: the grouped and ungrouped luma arms differ")
+    need("ab_refine_chip", launches["ab_refine_chip"], "ungrouped", "grouped", "luma_grouped",
+         "luma_ungrouped")
+    for name, arm in arec["arms"].items():
+        if not all(np.isfinite(v) for v in arm.values()) or arm["err_median"] > 0.05:
+            raise AssertionError(f"ab_refine_chip {name}: {arm}")
+    recs["ab_refine_chip"] = arec
+
+    (lrec, _, _), launches["ab_luma"] = counted("ab_luma", lambda: ab_luma.run(device=dev))
+    log("[refine_tools] ab_luma " + json.dumps(lrec))
+    need("ab_luma", launches["ab_luma"], "ungrouped", "grouped", "luma_grouped")
+    for tag, arms in lrec["scenes"].items():
+        for name, arm in arms.items():
+            if not all(np.isfinite(v) for v in arm.values()):
+                raise AssertionError(f"ab_luma {tag} {name}: {arm}")
+    recs["ab_luma"] = lrec
+
+    plane = os.path.join(workdir, "plane16")
+    with open(coverage_sweep.dataset_marker(plane, 16, 640, 480, 4096), "w") as f:
+        f.write("ok\n")  # phase 3's dataset
+    cov, launches["coverage_sweep"] = counted("coverage_sweep", lambda: coverage_sweep.run(
+        plane, budgets=(16384,), rounds=(8,), policies=("cell_first",), iterations=1,
+        device=dev, log=lambda *a: None))
+    log("[refine_tools] coverage_sweep " + json.dumps(cov))
+    need("coverage_sweep", launches["coverage_sweep"], "ungrouped", "grouped")
+    run = cov["runs"][0]
+    if not (run["final_alive"] > 0 and run["acc_median"] <= 0.05):
+        raise AssertionError(f"coverage_sweep: {run}")
+    recs["coverage_sweep"] = cov
+    return recs, launches
+
+
 def multihost_phase():
     """Phase 10: tools/multihost_ncc as two ranks on the card joined by
     gloo, then as one rank on nccl. Every child has a timeout; one that
@@ -970,13 +1086,16 @@ def main() -> int:
         t0 = time.time()
         meshes = mesh_phase(dev, work, paths["rgb"])
         log(f"[mesh] phase {time.time() - t0:.2f} s")
-    check_paths(paths)
-    t0 = time.time()
-    multihost_phase()
-    log(f"[multihost] phase {time.time() - t0:.2f} s")
-    t0 = time.time()
-    k1_batches = path_batch_phase(dev, paths["rgb"]["batches"]["ungrouped"])
-    log(f"[batches] phase {time.time() - t0:.2f} s")
+        check_paths(paths)
+        t0 = time.time()
+        multihost_phase()
+        log(f"[multihost] phase {time.time() - t0:.2f} s")
+        t0 = time.time()
+        k1_batches = path_batch_phase(dev, paths["rgb"]["batches"]["ungrouped"])
+        log(f"[batches] phase {time.time() - t0:.2f} s")
+        t0 = time.time()
+        _, tool_launches = refine_tools_phase(dev, work)
+        log(f"[refine_tools] phase {time.time() - t0:.2f} s")
     for form in ("fused", "luma_fused", *(f"ablate_{a}" for a in cuda_ncc.ABLATIONS[1:])):
         if bench_launches[form] <= 0:
             raise AssertionError(f"bench path missed {form}: {bench_launches}")
@@ -1016,6 +1135,9 @@ def main() -> int:
         if form == "ungrouped":  # per dp shard from hypothesis scoring
             for name, m in meshes.items():
                 entry["mesh_launches"][name]["hypotheses_per_dp_shard"] = m["dp"]["k1"]
+        if not fused:  # K1, K2, K3u, K3g in phase 12's runs
+            entry["refine_tools_launches"] = {tool: n[form] for tool, n in tool_launches.items()
+                                              if n.get(form)}
         if "gauntlet_windows" in r:  # K3u
             entry["gauntlet_windows"] = {k: r["gauntlet_windows"][k] for k in (
                 "windows", "ms", "bound_ms", "plan", "floor_ms")}

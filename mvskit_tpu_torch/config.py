@@ -123,9 +123,10 @@ class MVSConfig:
     use_illums: bool = True
 
     # ---- TPU-native knobs ----
-    use_pallas: bool = True                  # tile-DMA sampling kernel for
-                                             # NCC windows (auto-off when the
-                                             # backend is not a real TPU)
+    use_pallas: bool = True                  # the window sampler's CUDA
+                                             # kernel on a card; False runs
+                                             # its plain version there
+                                             # (Scene.use_kernel)
     # device mesh shape (dp, view, tile) — the three greenfield
     # parallel axes of SURVEY.md §2 (the reference is single-threaded,
     # propagate.cpp:78-121 sweeps one cell at a time). dp shards the

@@ -176,6 +176,12 @@ class Scene:
     then runs on the shards (``ops/ncc._sample_windows_view_sharded``).
     ``view_group`` is the ``torch.distributed`` group whose ranks hold
     the other shards (``parallel/multihost``), or None in one process.
+
+    ``use_kernel`` says whether the window fetches of a CUDA scene
+    launch the sampler's kernel (True, the default) or run its plain
+    version (False; the JAX package's ``enable_pallas`` is this switch,
+    and ``PMMVS`` sets it from ``cfg.use_pallas``, as JAX
+    ``driver.py:81`` does). A CPU scene always runs the plain version.
     """
 
     planes: torch.Tensor
@@ -195,6 +201,7 @@ class Scene:
     view_axis: str = "view"
     view_shards: Tuple["ViewShard", ...] = ()
     view_group: Optional[object] = None
+    use_kernel: bool = True
 
     @property
     def device(self) -> torch.device:

@@ -13,7 +13,8 @@ from ``Scene.planes_luma_quad``.
 of ``csrc/sample_windows.cu`` (ungrouped, or grouped when ``group`` > 1
 divides the batch, or fused with ``fused``), a CPU tensor runs the plain
 version (``sample_windows_plain`` / ``sample_windows_luma_plain``), the
-same arithmetic on the gather path. ``ablate`` names one of the
+same arithmetic on the gather path. A CUDA scene whose ``use_kernel``
+is False (``cfg.use_pallas = False``) runs the plain version too. ``ablate`` names one of the
 measurement switches of the JAX kernel (``ABLATIONS``), each of which
 drops one stage of the work and has a defined output that its plain
 version repeats. ``LAUNCHES`` counts kernel launches per form, and
@@ -319,10 +320,10 @@ def sample_windows(scene: Scene, idx, lvl, tl, dx, dy, wsize: int,
     ``ABLATIONS``. Returns (out [B, 3 * S] f32, or [B, S] with `luma`,
     fit [B] bool, all true)."""
     _check(scene, idx, lvl, tl, dx, dy, wsize, illum, luma, ablate)
-    if tl.device.type == "cuda":
+    if tl.device.type == "cuda" and scene.use_kernel:
         out = _launch(scene, idx, lvl, tl, dx, dy, wsize, illum, group, luma,
                       fused, ablate)
-    elif tl.device.type == "cpu":
+    elif tl.device.type in ("cpu", "cuda"):
         plain = sample_windows_luma_plain if luma else sample_windows_plain
         out = plain(scene, idx, lvl, tl, dx, dy, wsize, illum, ablate)
     else:

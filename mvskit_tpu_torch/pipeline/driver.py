@@ -12,6 +12,7 @@ synchronize), hypothesis counts, alive counts and filter kills.
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
 import functools
 import os
 import time
@@ -123,6 +124,10 @@ class PMMVS:
             cfg.prefix, cfg.images, cfg.nillums, cfg.max_level,
             use_vis_data=bool(cfg.use_vis_data), device=self.device,
         )
+        if self.scene.use_kernel != cfg.use_pallas:
+            # the sampler's kernel, or its plain version with
+            # use_pallas=False (JAX driver.py:81)
+            self.scene = dataclasses.replace(self.scene, use_kernel=cfg.use_pallas)
         self.mesh = None
         shape = (cfg.mesh_dp, cfg.mesh_view, cfg.mesh_tile)
         if mesh_devices is not None or cfg.mesh_dp * cfg.mesh_view * cfg.mesh_tile > 1:

@@ -17,7 +17,9 @@ on integers and past w - 2) in every switch; every ablation switch (K5)
 in every launch form equals its plain version bit for bit.
 The view-sharded sampler on k shards of the card (each launching the
 batch's form on its compacted windows) equals the unsharded launch bit
-for bit; a mesh of more cards than there are raises.
+for bit; a mesh of more cards than there are raises. refine_batch
+through the kernels equals it through the plain versions
+(``use_pallas=False``) bit for bit.
 The pipeline on the card against the same pipeline on the CPU, fed the
 same random numbers: alive counts within 3 % (reductions sum in another
 order on the card, which can flip a near-tie accept/reject)."""
@@ -523,6 +525,35 @@ def test_pipeline_on_card_tracks_cpu(card, tmp_path):
             assert cuda_ncc.LAUNCHES["ungrouped"] > 0 and cuda_ncc.LAUNCHES["grouped"] > 0
     for a, b in zip(alive["cpu"], alive["cuda"]):
         assert abs(a - b) <= 0.03 * a, alive
+
+
+@pytest.mark.parametrize("luma", [False, True])
+def test_refine_kernel_path_equals_plain_path(card, luma):
+    """refine_batch at B = 512 through the sampler's kernels and through
+    its plain version on the card (Scene.use_kernel = False, the
+    driver's use_pallas=False): the same bits, and only the kernel path
+    launches."""
+    import dataclasses
+
+    from mvskit_tpu_torch.ops import cuda_ncc
+    from mvskit_tpu_torch.tools import bench
+    from mvskit_tpu_torch.tools.bench_kernel import bench_scene
+
+    Ps, scene = bench_scene(card, 6, 160, 120)
+    coord, normal = bench.plane_inputs(Ps, scene, 512, extent=0.7)
+    images, dscale = bench.prep(scene, coord, normal)
+    out, launches = [], []
+    for use_kernel in (True, False):
+        gen = torch.Generator(device=card).manual_seed(0)
+        sc = dataclasses.replace(scene, use_kernel=use_kernel)
+        cuda_ncc.reset_launches()
+        out.append(bench.search(sc, coord, normal, images, dscale, generator=gen, rounds=6,
+                                cands=32, luma=luma))
+        torch.cuda.synchronize()
+        launches.append(sum(cuda_ncc.LAUNCHES.values()))
+    for k in ("coord", "normal", "ncc", "cost"):
+        assert torch.equal(getattr(out[0], k), getattr(out[1], k)), k
+    assert launches[0] > 0 and launches[1] == 0, launches
 
 
 @pytest.mark.parametrize("k", [3, 6])

@@ -1,6 +1,7 @@
 """The port stands alone: every submodule of mvskit_tpu_torch and the
 CLI's --help run in a subprocess where `import jax` fails (the walk
-reaches parallel/* and the e2e and scaling tools), and neither the port
+reaches parallel/*, the e2e and scaling tools and the refinement bench
+and studies), and neither the port
 nor chip_smoke.py imports any module of mvskit_tpu. Also the explicit
 device helper, the unported options' NotImplementedError and the
 options this port covers (the device mesh among them)."""
@@ -35,7 +36,8 @@ def test_import_all_submodules_without_jax():
         "            if k == 'mvskit_tpu' or k.startswith('mvskit_tpu.')]\n"
         "assert sys.modules['jax'] is None\n"
         "need = {'mvskit_tpu_torch.parallel.' + m for m in ('shard', 'tiles', 'multihost')}\n"
-        "need |= {'mvskit_tpu_torch.tools.' + m for m in ('e2e_run', 'bench_scaling')}\n"
+        "need |= {'mvskit_tpu_torch.tools.' + m for m in ('e2e_run', 'bench_scaling', 'bench',\n"
+        "         'bench_refine_parts', 'ab_refine_chip', 'ab_luma', 'coverage_sweep')}\n"
         "assert need <= set(names), need - set(names)\n"
         "print(len(names))\n"
     )
