@@ -75,6 +75,13 @@ Phases (any failure raises and the process exits non-zero):
      luma group 32); `tools.ab_refine_chip.run` at B = 4,096 (its grouped
      and ungrouped luma arms equal bit for bit); `tools.ab_luma.run`; and
      one `tools.coverage_sweep.run` configuration on phase 3's dataset.
+ 13. surface (run after phase 11, on the RGB path's final table with
+     planted floaters and the filter pass's first grid):
+     `filters.filter_neighbor` equal to `filter_neighbor_rows(0,
+     capacity)` (kill mask and count; it must kill),
+     `gather_neighbors` / `quad_residuals` equal to their `_batch` forms
+     on 1,024 alive rows, and `PatchTable.n_images_per_patch` equal to
+     its value on a CPU copy, each bit for bit.
 Each path runs with the launch counters set to 0 just before it and
 read just after (launches and windows per launch of each form); each
 checks its outputs and, where the path has one, its quality against the
@@ -857,6 +864,88 @@ def bench_tools_phase(dev, workdir):
     return grid, parts
 
 
+def surface_phase(dev, workdir):
+    """Phase 13: on the RGB path's final table (phase 3's .patch, read
+    back into a table of cfg.max_patches rows on `dev`, with every 50th
+    alive row lifted off the plane, and the filter pass's first grid
+    rebuilt on it), the whole-table filter entry point and the row
+    helpers against what the main path calls: filter_neighbor against
+    filter_neighbor_rows(0, capacity) (kill mask and count),
+    gather_neighbors / quad_residuals against the _batch forms on the
+    first 1,024 alive rows, and n_images_per_patch against its value on
+    a CPU copy of the table, each bit for bit. Returns the record."""
+    import torch
+
+    from mvskit_tpu_torch.config import MVSConfig
+    from mvskit_tpu_torch.core.grid import pow2_limit
+    from mvskit_tpu_torch.core.patches import PatchTable
+    from mvskit_tpu_torch.pipeline import filters as fl
+    from mvskit_tpu_torch.pipeline import seed as sd
+    from mvskit_tpu_torch.pipeline.driver import PMMVS
+
+    plane = os.path.join(workdir, "plane16")
+    cfg = MVSConfig.from_option_file(plane)
+    engine = PMMVS(cfg, device=dev, log=lambda *a: None)
+    scene = engine.scene
+    table = sd.seed_from_patch_file(scene, cfg, os.path.join(plane, "ply", "final_patches.patch"))
+    engine.close()
+    n_alive = table.n_alive()
+    # plant floaters (every 50th alive row lifted 0.2 off the plane) so
+    # that the neighbour filter has rows to kill
+    lift = torch.nonzero(table.alive).flatten()[::50]
+    table.coord[lift, 2] += 0.2
+    table, grid = fl.rebuild(scene, table, cfg.level, cfg.csize, cfg.filter_cell_capacity,
+                             cfg.neighbor_threshold, additive=False,
+                             row_limit=pow2_limit(max(n_alive, 1), table.capacity))
+    lv, cs = cfg.level, cfg.csize
+    caps = dict(max_neighbors=cfg.neighbor_capacity, cand_cap=cfg.neighbor_cand_cap)
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    def same(a, b):
+        return a.shape == b.shape and torch.equal(bits(a), bits(b))
+
+    t0 = time.time()
+    whole, n_whole = fl.filter_neighbor(scene, grid, table, lv, cs, cfg.tau,
+                                        cfg.quad_threshold, cfg.neighbor_threshold, **caps)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    whole_s = time.time() - t0
+    by_rows, n_rows = fl.filter_neighbor_rows(scene, grid, table, 0, table.capacity, lv, cs,
+                                              cfg.tau, cfg.quad_threshold,
+                                              cfg.neighbor_threshold, **caps)
+    rows = torch.nonzero(table.alive).flatten()[:1024].to(torch.int32)
+    idx = rows.long()
+    nb_kw = dict(margin=2, scale=4.0, neighbor_threshold=cfg.neighbor_threshold, **caps)
+    nbrs, count = fl.gather_neighbors(scene, grid, table, rows, lv, cs, **nb_kw)
+    nbrs_b, count_b = fl.gather_neighbors_batch(
+        scene, grid, table, table.coord[idx], table.normal[idx], table.dscale[idx],
+        table.images[idx], rows, lv, cs, **nb_kw)
+    resid, denom = fl.quad_residuals(scene, table, rows, nbrs, lv, cfg.tau)
+    resid_b, denom_b = fl.quad_residuals_batch(scene, table, table.coord[idx],
+                                               table.normal[idx], table.images[idx], nbrs,
+                                               lv, cfg.tau)
+    host = PatchTable(*(x.cpu() for x in table))
+    rec = {
+        "capacity": table.capacity, "alive": n_alive, "floaters": int(lift.numel()),
+        "rows": int(rows.numel()),
+        "filter_neighbor_s": whole_s, "kills": n_whole, "kills_by_rows": n_rows,
+        "kill_mask_equal": same(whole.alive, by_rows.alive) and n_whole == n_rows,
+        "gather_neighbors_equal": same(nbrs, nbrs_b) and same(count, count_b),
+        "quad_residuals_equal": same(resid, resid_b) and same(denom, denom_b),
+        "n_images_per_patch_equal": same(table.n_images_per_patch().cpu(),
+                                         host.n_images_per_patch()),
+        "max_views": table.max_views,
+        "median_neighbors": float(count.float().median()),
+    }
+    log("[surface] " + json.dumps(rec))
+    failed = [k for k, v in rec.items() if k.endswith("_equal") and not v]
+    if failed or n_whole <= 0 or not (rows.numel() == min(1024, n_alive) > 0):
+        raise AssertionError(f"surface phase: {failed or 'no kills or no alive rows'}: {rec}")
+    return rec
+
+
 def refine_tools_phase(dev, workdir):
     """Phase 12: the refinement benchmark and studies, each run with the
     launch counters set to 0 just before it and read just after:
@@ -1079,6 +1168,9 @@ def main() -> int:
         t0 = time.time()
         bench_tools_phase(dev, work)
         log(f"[benches] phase {time.time() - t0:.2f} s")
+        t0 = time.time()
+        surface_phase(dev, work)
+        log(f"[surface] phase {time.time() - t0:.2f} s")
         t0 = time.time()
         bench, bench_launches = bench_phase(dev)
         log(f"[bench] phase {time.time() - t0:.2f} s")

@@ -28,6 +28,14 @@ class PatchTable(NamedTuple):
     def capacity(self) -> int:
         return self.coord.shape[0]
 
+    @property
+    def max_views(self) -> int:
+        return self.images.shape[1]
+
+    def n_images_per_patch(self) -> torch.Tensor:
+        """[N] count of listed views per row, on the table's device."""
+        return count_valid(self.images)
+
     def n_alive(self) -> int:
         return int(self.alive.sum())
 

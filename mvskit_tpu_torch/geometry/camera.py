@@ -41,9 +41,9 @@ class CameraSet(NamedTuple):
 
 
 # ----------------------------------------------------------------------
-# Construction (host-side numpy). quat2proj, projection_from_params and
-# parse_camera_file are copied from mvskit_tpu/geometry/camera.py, which
-# imports jax.
+# Construction (host-side numpy). quat2proj, proj2quat,
+# projection_from_params, parse_camera_file and write_camera_file are
+# copied from mvskit_tpu/geometry/camera.py, which imports jax.
 # ----------------------------------------------------------------------
 
 def quat2proj(q: Sequence[float]) -> np.ndarray:
@@ -67,6 +67,29 @@ def quat2proj(q: Sequence[float]) -> np.ndarray:
     proj[3, 3] = 1.0
     return proj
 
+
+def proj2quat(proj: np.ndarray) -> np.ndarray:
+    """4x4 [R|t] -> Euler angles (degrees) + translation (camera.cpp:199-239)."""
+    q = np.zeros(6, dtype=np.float64)
+    q[3:6] = proj[0:3, 3]
+    if proj[2, 0] == 1.0:
+        q[1] = -math.pi / 2.0
+        q[2] = 0.0
+        q[0] = math.atan2(-proj[0, 1], proj[1, 1])
+    elif proj[2, 0] == -1.0:
+        q[1] = math.pi / 2.0
+        q[2] = 0.0
+        q[0] = math.atan2(proj[0, 1], proj[1, 1])
+    else:
+        q[1] = math.asin(-proj[2, 0])
+        s = 1.0 if math.cos(q[1]) > 0.0 else -1.0
+        q[0] = math.atan2(proj[2, 1] * s, proj[2, 2] * s)
+        q[2] = math.atan2(proj[1, 0] * s, proj[0, 0] * s)
+    q[0:3] = np.degrees(q[0:3])
+    for i in range(3):
+        if abs(q[i]) > 180.0:
+            q[i] = q[i] - 360.0 if q[i] > 0 else q[i] + 360.0
+    return q
 
 def projection_from_params(
     intrinsics: Sequence[float], extrinsics: Sequence[float], txt_type: int
@@ -108,6 +131,18 @@ def parse_camera_file(path: str) -> Tuple[np.ndarray, np.ndarray, int]:
     vals = [float(t) for t in tokens[1:13]]
     return np.array(vals[:6]), np.array(vals[6:12]), txt_type
 
+
+def write_camera_file(path: str, intrinsics, extrinsics, txt_type: int) -> None:
+    """Write a camera file (reference camera.cpp:263-292)."""
+    with open(path, "w") as f:
+        if txt_type == 0:
+            f.write("CONTOUR\n")
+        elif txt_type == 2:
+            f.write("CONTOUR2\n")
+        else:
+            raise ValueError(f"Incorrect txt type {txt_type}")
+        f.write(" ".join(repr(float(v)) for v in intrinsics) + "\n")
+        f.write(" ".join(repr(float(v)) for v in extrinsics) + "\n")
 
 def make_camera_set(projections: np.ndarray, device) -> CameraSet:
     """Derive all per-camera quantities from level-0 P matrices in

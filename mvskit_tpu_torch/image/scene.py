@@ -241,6 +241,30 @@ class ViewShard:
     scene: Scene
 
 
+def pairwise_view_distances(scene: Scene) -> np.ndarray:
+    """PhotoSet::setDistances (reference photoSet.cpp:105-148): optical
+    center distances normalized by their mean, plus an angular penalty
+    max(0, 1 - axis_i . axis_j - cos 10deg). A scene statistic; nothing
+    in the pipeline reads it. The [n, 4] centres and axes are copied to
+    the host (from mvskit_tpu/image/scene.py, which imports jax)."""
+    centers = scene.cams.center.cpu().numpy()[:, :3]
+    n = centers.shape[0]
+    diff = centers[:, None, :] - centers[None, :, :]
+    dist = np.linalg.norm(diff, axis=-1)
+    off = ~np.eye(n, dtype=bool)
+    denom = off.sum()
+    if denom == 0:
+        return dist
+    avedis = dist[off].mean()
+    if avedis == 0.0:
+        raise ValueError("all the optical centers are identical")
+    dist = dist / avedis
+    axes = scene.cams.oaxis.cpu().numpy()[:, :3]
+    margin = np.cos(np.deg2rad(10.0))
+    ang = np.maximum(0.0, 1.0 - axes @ axes.T - margin)
+    return dist + ang
+
+
 def pack_rgb(planes: np.ndarray) -> np.ndarray:
     """[..., 3] u8-valued float planes -> [...] int32 r | g<<8 | b<<16."""
     return (

@@ -271,6 +271,23 @@ def compute_radius(scene: Scene, table: PatchTable, level: int, csize: int):
                                 table.images, level, csize)
 
 
+def gather_neighbors(
+    scene, grid, table, rows, level: int, csize: int, margin: int,
+    scale: float, neighbor_threshold, max_neighbors: int,
+    cand_cap: int = 1024,
+):
+    """findNeighbors (patch_manager.cpp:671-728) for table rows `rows`
+    [B] (``gather_neighbors_batch`` on those rows' attributes, each row
+    its own self). Returns (nbrs[B, K] int32 -1-pad, count[B] distinct
+    before capping)."""
+    idx = rows.long()
+    return gather_neighbors_batch(
+        scene, grid, table, table.coord[idx], table.normal[idx],
+        table.dscale[idx], table.images[idx], rows.to(torch.int32),
+        level, csize, margin, scale, neighbor_threshold, max_neighbors,
+        cand_cap,
+    )
+
 def gather_neighbors_batch(
     scene, grid, table, coord, normal, dscale, lists, self_rows, level,
     csize, margin: int, scale: float, neighbor_threshold,
@@ -353,6 +370,13 @@ def _ortho(z):
     return x, y
 
 
+def quad_residuals(scene, table, rows, nbrs, level: int, tau: int):
+    """``quad_residuals_batch`` for table rows `rows` [B]."""
+    idx = rows.long()
+    return quad_residuals_batch(scene, table, table.coord[idx],
+                                table.normal[idx], table.images[idx], nbrs,
+                                level, tau)
+
 def quad_residuals_batch(scene, table, coord, normal, images, nbrs, level: int, tau: int):
     """Filter::filterQuad residual (filter.cpp:329-392): fit a quadric
     z = f(x, y) over the neighbors in the patch plane frame; return the
@@ -429,6 +453,21 @@ def filter_neighbor_rows(
     alive = table.alive.clone()
     alive[rows_all] = table.alive[rows_all] & ~reject
     return table._replace(alive=alive), int(kill.sum())
+
+
+def filter_neighbor(
+    scene, grid, table, level, csize, tau, quad_threshold,
+    neighbor_threshold, max_neighbors: int = 48, chunk: int = 1024,
+    cand_cap: int = 1024, dp_devices=None,
+) -> Tuple[PatchTable, int]:
+    """filterNeighbor (filter.cpp:265-327) over the whole table:
+    ``filter_neighbor_rows`` on rows [0, capacity). ``run_filters``
+    calls ``filter_neighbor_rows`` itself, on the live prefix."""
+    return filter_neighbor_rows(
+        scene, grid, table, 0, table.capacity, level, csize, tau,
+        quad_threshold, neighbor_threshold, max_neighbors, chunk, cand_cap,
+        dp_devices,
+    )
 
 
 # ----------------------------------------------------------------------

@@ -43,6 +43,16 @@ def rq_decompose(M: np.ndarray):
     return K, R
 
 
+def rotation_of_view(scene: Scene, index: int) -> np.ndarray:
+    """World->camera rotation from the projection matrix (generalizes
+    the reference's CONTOUR2-only Camera::setR, camera.cpp:179-197):
+    the R of an RQ decomposition of the view's float32 P[:, :3], taken
+    to the host in float64."""
+    M = scene.cams.P[index, :, :3].cpu().numpy().astype(np.float64)
+    _, R = rq_decompose(M)
+    return R
+
+
 def finalize_seeds(
     scene: Scene,
     cfg: MVSConfig,

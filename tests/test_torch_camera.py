@@ -105,3 +105,50 @@ def test_camera_file_parsing_matches(tmp_path):
     np.testing.assert_array_equal(
         jcam.projection_from_params(ji, je, jt), tcam.projection_from_params(ti, te, tt)
     )
+
+
+@pytest.mark.parametrize("q", [
+    [12.0, -35.0, 130.0, 0.4, -1.2, 3.3],
+    [-170.0, 89.0, -5.0, 0.0, 2.0, -1.0],
+    [30.0, 90.0, 0.0, 1.0, 1.0, 1.0],     # proj[2, 0] == -1
+    [30.0, -90.0, 0.0, 1.0, 1.0, 1.0],    # proj[2, 0] == +1
+])
+def test_proj2quat_roundtrip_and_matches(q):
+    """The JAX round trip (tests/test_camera.py) on the port, and the port
+    against JAX to 1e-12 on float64, gimbal-lock branches included."""
+    proj = tcam.quat2proj(q)
+    got = tcam.proj2quat(proj)
+    if abs(q[1]) != 90.0:
+        np.testing.assert_allclose(got, q, atol=1e-5)
+    np.testing.assert_allclose(got, jcam.proj2quat(proj), rtol=0, atol=1e-12)
+    rng = np.random.default_rng(int(abs(q[0])))
+    for _ in range(8):
+        r = np.concatenate([rng.uniform(-179, 179, 1), rng.uniform(-89, 89, 1),
+                            rng.uniform(-179, 179, 1), rng.normal(size=3)])
+        P = tcam.quat2proj(r)
+        np.testing.assert_allclose(tcam.proj2quat(P), jcam.proj2quat(P), rtol=0, atol=1e-12)
+        np.testing.assert_allclose(tcam.proj2quat(P), r, atol=1e-9)
+
+
+@pytest.mark.parametrize("txt_type", [0, 1, 2])
+def test_write_camera_file_matches(tmp_path, txt_type):
+    """The same bytes as the JAX writer for CONTOUR and CONTOUR2, read
+    back by parse_camera_file; ValueError for any other type."""
+    rng = np.random.default_rng(txt_type)
+    intr = rng.normal(size=6) * 100.0
+    extr = rng.normal(size=6)
+    jp, tp = str(tmp_path / "j.txt"), str(tmp_path / "t.txt")
+    if txt_type not in (0, 2):
+        with pytest.raises(ValueError):
+            jcam.write_camera_file(jp, intr, extr, txt_type)
+        with pytest.raises(ValueError):
+            tcam.write_camera_file(tp, intr, extr, txt_type)
+        return
+    jcam.write_camera_file(jp, intr, extr, txt_type)
+    tcam.write_camera_file(tp, intr, extr, txt_type)
+    with open(jp, "rb") as a, open(tp, "rb") as b:
+        assert a.read() == b.read()
+    i2, e2, t2 = tcam.parse_camera_file(tp)
+    assert t2 == txt_type
+    np.testing.assert_array_equal(i2, intr)
+    np.testing.assert_array_equal(e2, extr)

@@ -157,3 +157,73 @@ def test_singular_quad_system_does_not_raise(sp):
     resid, denom = tfl.quad_residuals_batch(ts, tt, tt.coord[:4], tt.normal[:4],
                                             tt.images[:4], nbrs, LEVEL, TAU)
     assert (denom == -5).all() and resid.shape == (4,)
+
+
+def test_table_counts_match(sp):
+    """PatchTable.n_images_per_patch / max_views against JAX."""
+    js, ts, jt = sp
+    tt = jax_table_to_torch(jt)
+    assert tt.max_views == jt.max_views
+    np.testing.assert_array_equal(tt.n_images_per_patch().numpy(),
+                                  np.asarray(jt.n_images_per_patch()))
+    assert int(tt.n_images_per_patch().sum()) > 0
+
+
+def _alive_rows(jt):
+    return np.flatnonzero(np.asarray(jt.alive)).astype(np.int32)
+
+
+def test_gather_neighbors_matches(sp):
+    """findNeighbors on table rows: the JAX neighbour sets and counts
+    exactly, and tests/test_filters.py's properties (no duplicates, not
+    self, interior rows with >= 6 neighbours)."""
+    js, ts, jt = sp
+    jt, jg, tg = _rebuild(js, ts, jt, True)
+    rows = _alive_rows(jt)
+    kw = dict(margin=2, scale=4.0, neighbor_threshold=0.5, max_neighbors=48)
+    jn, jc = jfl.gather_neighbors(js, jg, jt, jnp.asarray(rows), LEVEL, CSIZE, **kw)
+    tn, tc = tfl.gather_neighbors(ts, tg, jax_table_to_torch(jt), torch.as_tensor(rows),
+                                  LEVEL, CSIZE, **kw)
+    np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    assert np.median(tc.numpy()) >= 6
+    for i, r in enumerate(rows):
+        nb = tn.numpy()[i][tn.numpy()[i] >= 0]
+        assert len(set(nb.tolist())) == len(nb) and r not in nb
+
+
+def test_quad_residuals_matches(sp):
+    """filterQuad's residuals on table rows: the denominators exactly,
+    the residuals to 1e-5 relative and 1e-4 absolute, and low on the
+    plane (tests/test_filters.py). The absolute floor is float32's: on a
+    coplanar neighbourhood the fit is exact and the residual, O(1e-5),
+    is rounding in the 5x5 solve, which the two packages order
+    differently."""
+    js, ts, jt = sp
+    jt, jg, tg = _rebuild(js, ts, jt, True)
+    tt = jax_table_to_torch(jt)
+    rows = _alive_rows(jt)
+    kw = dict(margin=2, scale=4.0, neighbor_threshold=0.5, max_neighbors=48)
+    jn, jc = jfl.gather_neighbors(js, jg, jt, jnp.asarray(rows), LEVEL, CSIZE, **kw)
+    jr, jd = jfl.quad_residuals(js, jt, jnp.asarray(rows), jn, LEVEL, TAU)
+    tr, td = tfl.quad_residuals(ts, tt, torch.as_tensor(rows),
+                                torch.as_tensor(np.array(jn)), LEVEL, TAU)
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+    np.testing.assert_allclose(tr.numpy(), np.asarray(jr), rtol=1e-5, atol=1e-4)
+    use = np.asarray(jc) >= 6
+    assert use.any() and np.median(tr.numpy()[use]) < 0.5
+
+
+def test_filter_neighbor_whole_table_matches(sp):
+    """The whole-table entry point: JAX filter_neighbor's kill mask and
+    count, and the port's filter_neighbor_rows over [0, capacity)."""
+    js, ts, jt = sp
+    jt, jg, tg = _rebuild(js, ts, jt, True)
+    tt = jax_table_to_torch(jt)
+    jr = jfl.filter_neighbor(js, jg, jt, LEVEL, CSIZE, TAU, 2.5, 0.5, chunk=128)
+    tr = tfl.filter_neighbor(ts, tg, tt, LEVEL, CSIZE, TAU, 2.5, 0.5, chunk=128)
+    _eq_kill(jr, tr, jt)
+    rr = tfl.filter_neighbor_rows(ts, tg, tt, 0, tt.capacity, LEVEL, CSIZE, TAU,
+                                  2.5, 0.5, chunk=128)
+    np.testing.assert_array_equal(tr[0].alive.numpy(), rr[0].alive.numpy())
+    assert tr[1] == rr[1] >= 3

@@ -89,3 +89,17 @@ def test_load_scene_from_written_dataset(tmp_path):
     j = jscene.load_scene(prefix, cfg.images, cfg.nillums, cfg.max_level)
     t = tscene.load_scene(prefix, cfg.images, cfg.nillums, cfg.max_level, device="cpu")
     _assert_scene_equal(j, t)
+
+
+def test_rotation_of_view_matches():
+    """World->camera rotation of every view of a ring and of the sphere
+    cameras, port against JAX within 1e-6, and a rotation."""
+    for Ps in (jsyn.ring_cameras(5, 160, 120), jsyn.sphere_cameras(4, 96, 64)):
+        imgs = [np.zeros((64, 96, 3), np.uint8)] * len(Ps)
+        j = jscene.scene_from_arrays(Ps, imgs, max_level=2)
+        t = tscene.scene_from_arrays(Ps, imgs, max_level=2, device="cpu")
+        for i in range(len(Ps)):
+            R = tseed.rotation_of_view(t, i)
+            np.testing.assert_allclose(R, jseed.rotation_of_view(j, i), rtol=0, atol=1e-6)
+            np.testing.assert_allclose(R @ R.T, np.eye(3), atol=1e-9)
+            assert np.linalg.det(R) > 0
