@@ -23,7 +23,10 @@ Phases (any failure raises and the process exits non-zero):
      ptxas's numbers, the grouped and fused ones each K5 switch's time on
      the same windows, the grouped ones K4's time and the ungrouped
      launch's plan and time, the ungrouped ones the timing floors beside
-     theirs; K4 also runs the edge lattices of
+     theirs; each is also timed against the library yardstick, one 5-D
+     grid_sample call on the scene's level volume
+     (tools/bench_kernel.library_windows), which must agree with the
+     kernel's output within LIBRARY_ATOL; K4 also runs the edge lattices of
      tools/bench_kernel.edge_windows (NaN, +-inf, negative coordinates,
      ones on integers and past w - 2) at 7 x 7 and 5 x 5 under every K5
      switch, beside the grouped and ungrouped launches, each bit for bit
@@ -41,7 +44,8 @@ Phases (any failure raises and the process exits non-zero):
   6. kernel bench path: `mvskit_tpu_torch.tools.bench_kernel.run` at the
      JAX tool's size (57,344 windows on 16 x 640x480): group 1 and 32,
      fused off and on, and every ablation switch on the grouped RGB and
-     luma forms, each output bit for bit against its plain version;
+     luma forms, each output bit for bit against its plain version and
+     each unablated one within LIBRARY_ATOL of the grid_sample yardstick;
   7. pmvs: `cli.main --strategy pmvs` on phase 3's dataset at the
      default depth.
   8. K1 at the RGB path's batches: the ungrouped RGB launch timed,
@@ -123,6 +127,10 @@ ABLATE_FLOPS = {("rgb", "nocompute"): 8, ("luma", "nocompute"): 8,
 # 0.9997 on the TPU).
 LIMITS = {"rgb": (0.015, 0.98), "luma": (0.017, 0.98), "illum3": (0.015, 0.98)}
 ACC_MEAN_BAR = 0.012
+# the library yardstick (one grid_sample call) against each kernel, on
+# the 0-255 scale: its coordinates' normalise / unnormalise round trip
+# moves a sample by about 1e-4 px
+LIBRARY_ATOL = 0.02
 # name, launch-counter form, channel mode, the window set its path gives
 # it (K1: the gauntlet's patches x views; K2, K3 grouped and K3
 # ungrouped: the refinement candidates, which the luma path launches
@@ -331,6 +339,37 @@ def measure(name, scene, wset, mode, group, fused=False):
     return rec, out_k
 
 
+def library_times(scene, wset, mode, out_k):
+    """The library yardstick on the record's windows: one 5-D
+    grid_sample call (tools/bench_kernel.library_windows) on the scene's
+    level volume. `library_ms` is that call alone on a grid built
+    beforehand, `library_call_ms` the grid's preparation from the
+    lattices, the call and the copy into the kernel's layout, both timed
+    as `ms` is; `library_max_abs_err` is against the kernel's output
+    (0.02 at most on the 0-255 scale)."""
+    import torch
+
+    from mvskit_tpu_torch.tools import bench_kernel as bk
+
+    args = tuple(wset[:5])
+    luma = mode == "luma"
+    vol = bk.level_volume(scene, luma)
+    grid = bk.library_grid(scene, *args, WSIZE, vol)
+    lib = bk.library_windows(scene, *args, WSIZE, luma=luma, volume=vol)
+    both = torch.isfinite(lib) & torch.isfinite(out_k)
+    err = (lib - out_k).abs()[both].max().item() if both.any() else 0.0
+    del lib
+    rec = {"library_max_abs_err": err, "library_volume_bytes": vol.numel() * 4,
+           "library_ms": min(bk.cuda_time_ms(lambda: bk.library_sample(vol, grid), 7)
+                             for _ in range(2)),
+           "library_call_ms": min(bk.cuda_time_ms(lambda: bk.library_windows(
+               scene, *args, WSIZE, luma=luma, volume=vol), 7) for _ in range(2))}
+    del grid
+    if not err <= LIBRARY_ATOL:
+        raise AssertionError(f"{mode}: grid_sample differs from the kernel by {err}")
+    return rec
+
+
 def check_ungrouped(rec, scene, wset, mode, out):
     """The ungrouped output against the grouped launch (groups of
     N_CANDS) on the same windows, bit for bit (on the whole groups the
@@ -441,7 +480,7 @@ def kernel_phase(dev):
     import torch
 
     from mvskit_tpu_torch.ops import _build, cuda_ncc
-    from mvskit_tpu_torch.tools.bench_kernel import bits_equal
+    from mvskit_tpu_torch.tools import bench_kernel as bk
 
     _build.load_library()  # built before its ptxas report is read
     ptxas = _build.ptxas_report()
@@ -453,7 +492,7 @@ def kernel_phase(dev):
         if fused:  # the fused launch equals the unfused grouped one
             base = "sample_windows_luma_grouped" if mode == "luma" else "sample_windows_grouped"
             grp, out_g = measure(name + " (grouped launch)", scene, sets[wset], mode, group)
-            rec["bitwise_equal_grouped"] = bits_equal(out_g, out)
+            rec["bitwise_equal_grouped"] = bk.bits_equal(out_g, out)
             if not rec["bitwise_equal_grouped"]:
                 raise AssertionError(f"{name}: fused output differs from grouped")
             rec["grouped_ms_same_windows"] = grp["ms"]
@@ -467,7 +506,7 @@ def kernel_phase(dev):
             del out_g
         elif group > 1:  # the grouped launch equals the ungrouped one
             ung, out_u = measure(name + " (ungrouped launch)", scene, sets[wset], mode, 1)
-            rec["bitwise_equal_ungrouped"] = bits_equal(out_u, out)
+            rec["bitwise_equal_ungrouped"] = bk.bits_equal(out_u, out)
             if not rec["bitwise_equal_ungrouped"]:
                 raise AssertionError(f"{name}: grouped output differs from ungrouped")
             rec["ungrouped_ms_same_windows"] = ung["ms"]
@@ -488,7 +527,7 @@ def kernel_phase(dev):
                     "bitwise_equal_grouped", "plan", "ablate_ms_same_windows",
                     "floor_ms")}
                 del out_g
-        rec["library_ms"] = None  # no single PyTorch call computes it (PERF.md)
+        rec.update(library_times(scene, sets[wset], mode, out))
         log(f"[kernel] {name} on {card}: " + json.dumps(rec))
         records[name] = rec
         del out
@@ -500,6 +539,7 @@ def kernel_phase(dev):
         log(f"[kernel] {grouped}: {records[grouped]['ms']} ms (bound share "
             f"{records[grouped]['bound_share']:.3f}), fused {records[fused]['ms']} ms, "
             f"grid {records[grouped]['plan']['grid']}, ptxas {records[grouped]['ptxas']}")
+    bk._volume.cache_clear()
     return records
 
 
@@ -568,6 +608,9 @@ def bench_phase(dev):
             if not rec[mode]["bitwise_equal_plain"]:
                 raise AssertionError(f"bench {group}/{fused}/{ablate!r} {mode}: kernel "
                                      f"differs from its plain version")
+            if not ablate and not rec[mode]["library_max_abs_err"] <= LIBRARY_ATOL:
+                raise AssertionError(f"bench {group}/{fused} {mode}: grid_sample differs "
+                                     f"by {rec[mode]['library_max_abs_err']}")
             lay = res.layout
             touched = touched_pixels(scene[1], lay["idx"], lay["lvl"], lay["tl"], lay["dx"],
                                      lay["dy"], mode, ablate)
@@ -576,6 +619,7 @@ def bench_phase(dev):
         log("[bench] " + json.dumps(rec))
         records.append(rec)
     launches = dict(cuda_ncc.LAUNCHES)
+    bk._volume.cache_clear()
     log("[bench] launches " + json.dumps(launches))
     return records, launches
 
@@ -873,7 +917,11 @@ def surface_phase(dev, workdir):
     filter_neighbor_rows(0, capacity) (kill mask and count),
     gather_neighbors / quad_residuals against the _batch forms on the
     first 1,024 alive rows, and n_images_per_patch against its value on
-    a CPU copy of the table, each bit for bit. Returns the record."""
+    a CPU copy of the table, each bit for bit; and the lifted rows split
+    by the gate that kills or keeps each (fewer than 6 neighbours, the
+    quadric; survivors with denom < 1, with a residual under
+    quad_threshold, with a non-finite residual), whose kills must be
+    the whole pass's kills among them. Returns the record."""
     import torch
 
     from mvskit_tpu_torch.config import MVSConfig
@@ -926,6 +974,26 @@ def surface_phase(dev, workdir):
     resid_b, denom_b = fl.quad_residuals_batch(scene, table, table.coord[idx],
                                                table.normal[idx], table.images[idx], nbrs,
                                                lv, cfg.tau)
+    # the floaters by gate of filter_neighbor_rows' reject rule, each
+    # scored in the pass's own chunk of 1,024 rows (a batch of another
+    # size may round its quadric fit otherwise)
+    parts = []
+    for s0 in (torch.unique(lift // 1024) * 1024).tolist():
+        c_rows = torch.arange(s0, min(s0 + 1024, table.capacity), device=dev,
+                              dtype=torch.int32)
+        c_nbrs, c_count = fl.gather_neighbors(scene, grid, table, c_rows, lv, cs, **nb_kw)
+        c_resid, c_denom = fl.quad_residuals(scene, table, c_rows, c_nbrs, lv, cfg.tau)
+        sel = lift[(lift >= s0) & (lift < s0 + 1024)] - s0
+        parts.append((c_count[sel], c_resid[sel], c_denom[sel]))
+    f_count, f_resid, f_denom = (torch.cat([p[i] for p in parts]) for i in range(3))
+    q = cfg.quad_threshold
+    f_reject = (f_count < 6) | ((f_denom >= 1) & (f_resid >= q))
+    f_fit = ~f_reject & (f_denom >= 1)
+    gates = {"count_lt_6": f_count < 6,
+             "quadric": (f_count >= 6) & (f_denom >= 1) & (f_resid >= q),
+             "survive_denom_lt_1": ~f_reject & (f_denom < 1),
+             "survive_resid_lt_threshold": f_fit & (f_resid < q),
+             "survive_resid_not_finite": f_fit & ~torch.isfinite(f_resid)}
     host = PatchTable(*(x.cpu() for x in table))
     rec = {
         "capacity": table.capacity, "alive": n_alive, "floaters": int(lift.numel()),
@@ -938,6 +1006,11 @@ def surface_phase(dev, workdir):
                                          host.n_images_per_patch()),
         "max_views": table.max_views,
         "median_neighbors": float(count.float().median()),
+        "floaters_killed": int((table.alive[lift] & ~whole.alive[lift]).sum()),
+        "floater_gates": {k: int(v.sum()) for k, v in gates.items()},
+        "floater_median_neighbors": float(f_count.float().median()),
+        "floater_kills_equal": bool(torch.equal(f_reject,
+                                                table.alive[lift] & ~whole.alive[lift])),
     }
     log("[surface] " + json.dumps(rec))
     failed = [k for k, v in rec.items() if k.endswith("_equal") and not v]
@@ -1203,7 +1276,9 @@ def main() -> int:
             "launches": bench_launches[form] if fused else paths[path_of[form]]["launches"][form],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"],
+            "library_ms": r["library_ms"], "library_call_ms": r["library_call_ms"],
+            "library_max_abs_err": r["library_max_abs_err"],
+            "library_volume_bytes": r["library_volume_bytes"],
         }
         if "plan" in r:  # every form: K1, K2, K3u, K3g and K4
             entry.update(windows=r["windows"], bound_share=r["bound_share"], plan=r["plan"],

@@ -259,8 +259,8 @@ def _depth_block(scene: Scene, coord, alive, first_row: int, level: int, csize: 
 
 def build_depth_maps(
     scene: Scene, table: PatchTable, level: int, csize: int,
-    row_limit: Optional[int] = None, row_start: int = 0,
-    row_count: Optional[int] = None, dp_devices=None,
+    row_start: int = 0, row_count: Optional[int] = None,
+    row_limit: Optional[int] = None, *, dp_devices=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Z-buffer rebuild (filter.cpp:580-626): every alive patch projects
     into EVERY image; its optical-axis depth updates the floor/ceil cell

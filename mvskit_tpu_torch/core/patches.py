@@ -61,11 +61,12 @@ def from_numpy(
     images: np.ndarray,
     capacity: int,
     max_views: int,
-    device,
     ncc=None,
     dscale=None,
     ascale=None,
     vimages=None,
+    *,
+    device,
 ) -> PatchTable:
     """Host-side constructor padding a seed set up to `capacity`."""
     n = coord.shape[0]

@@ -227,8 +227,9 @@ def tiled_propagate_round(
     ncc_threshold_before,
     use_depth: bool = True,
     quad_threshold=2.5,
-    row_limit: Optional[int] = None,
     axis: str = "tile",
+    *,
+    row_limit: Optional[int] = None,
     generator: Optional[torch.Generator] = None,
     dp_devices=None,
 ) -> Tuple[PatchTable, pr.RoundStats]:

@@ -114,8 +114,8 @@ class PMMVS:
     the views twice (JAX driver.py:123-133)."""
 
     def __init__(self, cfg: MVSConfig, scene: Optional[Scene] = None,
-                 log=print, device="cuda", noise=None, mesh_devices=None,
-                 view_mesh=None):
+                 log=print, view_mesh=None, *, device="cuda", noise=None,
+                 mesh_devices=None):
         check_supported(cfg)
         self.cfg = cfg
         self.log = log

@@ -172,8 +172,9 @@ def select_donors(scene: Scene, grid: gridmod.GridState, table: PatchTable,
 def generate_hypotheses(scene: Scene, table: PatchTable, grid: gridmod.GridState,
                         donor_pidx, donor_img, donor_cy, donor_cx, donor_ok,
                         axis: int, direction: int, jitter, p: PropagateParams,
+                        gate_full=None, gate_worst_ncc=None, *,
                         generator: Optional[torch.Generator] = None,
-                        gate_full=None, gate_worst_ncc=None, dp_devices=None):
+                        dp_devices=None):
     """generatePatch for a donor batch (propagate.cpp:126-237): jittered
     target-cell pixel, depth transfer along the new ray, copied normal,
     view list re-projected (OOB views dropped), initial NCC; a full

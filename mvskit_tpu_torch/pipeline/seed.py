@@ -67,7 +67,7 @@ def finalize_seeds(
     Patches that lost every view die immediately."""
     table = pt.from_numpy(
         coord, normal, images, cfg.max_patches, scene.n_images,
-        scene.device, ncc=ncc, dscale=dscale, ascale=ascale,
+        ncc=ncc, dscale=dscale, ascale=ascale, device=scene.device,
     )
     n = coord.shape[0]
     c, nm, im = table.coord[:n], table.normal[:n], table.images[:n]

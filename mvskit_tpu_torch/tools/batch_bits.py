@@ -71,7 +71,7 @@ def run(points: int = 16384, views: int = 16, width: int = 640, height: int = 48
     gen.manual_seed(0)
     nbrs = torch.randint(0, B, (B, 48), generator=gen, device=dev).to(torch.int32)
     nbrs[:, 40:] = -1
-    table = pt.from_numpy(c_np, n_np, images.cpu().numpy(), B, views, dev)
+    table = pt.from_numpy(c_np, n_np, images.cpu().numpy(), B, views, device=dev)
     terms = torch.rand((6, B), generator=gen, device=dev)
     fns = {
         "compute_patch_ncc": lambda s, e: ncc.compute_patch_ncc(

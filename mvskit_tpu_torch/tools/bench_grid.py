@@ -58,8 +58,8 @@ def synthetic_table(n_img: int, capacity: int, alive: int, device):
         k = rng.integers(4, 11)
         images[i, :k] = rng.choice(n_img, size=k, replace=False)
     ncc = rng.uniform(0.4, 1.0, (A,)).astype(np.float32)
-    table = pt.from_numpy(coord, normal, images, capacity, n_img, device, ncc=ncc,
-                          vimages=images)
+    table = pt.from_numpy(coord, normal, images, capacity, n_img, ncc=ncc,
+                          vimages=images, device=device)
     return (coord, normal, images, ncc), table
 
 

@@ -17,15 +17,25 @@ FUSED=1 selects the fused form and ABLATE one of
 runs (``--device cuda``, the default): `ms` and `plain_ms` with each run
 queued behind a device-side wait, so they count the device's work
 alone, and `call_ms` without it (one call as a caller sees it, the
-host's launch latency included). With ``--device cpu`` the kernel is its
-plain version and nothing is timed. Prints KERNEL_MSPS= (luma)
+host's launch latency included). Beside them, `library_ms` times the
+library yardstick below on a grid built beforehand and `library_call_ms`
+with the grid's preparation and the copy into the kernel's layout;
+`library_max_abs_err` holds it to the kernel's output (unablated runs
+only). With ``--device cpu`` the kernel is its plain version and
+nothing is timed. Prints KERNEL_MSPS= (luma)
 and KERNEL_RGB_MSPS= (RGB) in millions of samples per second, then one
 JSON record.
+
+``library_windows`` is the yardstick each form is timed against: the
+same samples from one ``torch.nn.functional.grid_sample`` call on a 5-D
+volume of every (view, illumination, level) plane. Nothing in the engine
+calls it.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import os
@@ -34,6 +44,7 @@ from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .. import get_device
 from ..geometry import camera as cam
@@ -137,6 +148,67 @@ def edge_cases(w: float, h: float):
     )
 
 
+@functools.lru_cache(maxsize=2)
+def _volume(planes: torch.Tensor, offsets, widths, heights, luma: bool) -> torch.Tensor:
+    n, n_illums = planes.shape[:2]
+    W0, H0 = widths[0], heights[0]
+    slices = []
+    for o, w, h in zip(offsets, widths, heights):
+        lv = planes[:, :, o:o + w * h]
+        lv = ((lv & 0xFF).to(torch.float32).unsqueeze(-1) if luma else lv)
+        lv = lv.reshape(n * n_illums, h, w, -1).permute(0, 3, 1, 2)
+        slices.append(F.pad(lv, (0, W0 - w, 0, H0 - h), mode="replicate"))
+    vol = torch.stack(slices, 1)  # [n * I, L, C, H0, W0]
+    return vol.flatten(0, 1).transpose(0, 1).unsqueeze(0).contiguous()
+
+
+def level_volume(scene, luma: bool = False) -> torch.Tensor:
+    """[1, C, n * I * L, H0, W0] f32 volume of every plane of the scene:
+    slice (v * I + i) * L + l holds view v's level l under illumination
+    i, replicate-padded from its w x h to level 0's W0 x H0, so a sample
+    past its level's edge reads the edge pixel, as the plain sampler's
+    clamped taps do. RGB reads ``Scene.planes`` (C = 3), luma the low
+    byte of ``Scene.planes_luma_quad``, each pixel's own u8 luma (C = 1).
+    Built once per (planes, luma) and cached."""
+    planes = scene.planes_luma_quad if luma else scene.planes
+    return _volume(planes, tuple(scene.offsets), tuple(scene.widths),
+                   tuple(scene.heights), luma)
+
+
+def library_grid(scene, idx, lvl, tl, dx, dy, wsize: int, volume: torch.Tensor,
+                 illum: int = 0) -> torch.Tensor:
+    """The [1, B, S, 1, 3] grid of the windows' lattices in `volume`:
+    x, y normalised over level 0's size and z at the (view, illum,
+    level) slice, for ``grid_sample`` with align_corners=True."""
+    D, H0, W0 = volume.shape[2:]
+    B, S = idx.shape[0], wsize * wsize
+    gx, gy = cuda_ncc.lattice(tl, dx, dy, wsize)
+    z = ((idx.long() * scene.n_illums + illum) * len(scene.offsets) + lvl.long())
+    zn = (z.to(torch.float32) * (2.0 / max(D - 1, 1)) - 1.0).unsqueeze(1).expand(B, S)
+    grid = torch.stack([gx * (2.0 / (W0 - 1)) - 1.0, gy * (2.0 / (H0 - 1)) - 1.0, zn], -1)
+    return grid.view(1, B, S, 1, 3)
+
+
+def library_sample(volume: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """The one ``grid_sample`` call: [1, C, B, S, 1] samples."""
+    return F.grid_sample(volume, grid, mode="bilinear", padding_mode="border",
+                         align_corners=True)
+
+
+def library_windows(scene, idx, lvl, tl, dx, dy, wsize: int, luma: bool = False,
+                    volume: Optional[torch.Tensor] = None, illum: int = 0) -> torch.Tensor:
+    """What ``cuda_ncc.sample_windows_plain`` (or ``_luma_plain`` with
+    `luma`) computes, in its [B, C * S] layout, through one
+    ``grid_sample`` call on ``level_volume(scene, luma)`` (or `volume`).
+    The coordinates' normalise / unnormalise round trip moves a sample
+    by about 1e-4 px, so the two agree within 0.02 on the 0-255 scale
+    (a few 1e-4 on the plane's textures), not bit for bit."""
+    vol = level_volume(scene, luma) if volume is None else volume
+    grid = library_grid(scene, idx, lvl, tl, dx, dy, wsize, vol, illum)
+    out = library_sample(vol, grid)[0, ..., 0]  # [C, B, S]
+    return out.permute(1, 0, 2).reshape(idx.shape[0], -1)
+
+
 # cycles of torch.cuda._sleep queued before each timed call (about
 # 20 ms at the H100's 1.98 GHz boost clock): the host enqueues the whole
 # call while the device waits, so the events time the device's work and
@@ -207,12 +279,25 @@ def run(n_windows: int = N_WINDOWS, reps: int = 3, group: int = 1,
         r = {"form": cuda_ncc.launch_form(n_windows, group, luma, fused),
              "bitwise_equal_plain": bits_equal(out_k, out_p),
              "max_abs_err": float((out_k - out_p).abs()[both].max()) if both.any() else 0.0,
-             "ms": None, "call_ms": None, "plain_ms": None, "msamples_per_s": None}
+             "ms": None, "call_ms": None, "plain_ms": None, "msamples_per_s": None,
+             "library_ms": None, "library_call_ms": None, "library_max_abs_err": None}
+        if not ablate:  # the yardstick computes the unablated samples
+            vol = level_volume(sc, luma)
+            lib = library_windows(sc, *args, WSIZE, luma=luma, volume=vol)
+            both = torch.isfinite(lib) & torch.isfinite(out_k)
+            r["library_max_abs_err"] = float((lib - out_k).abs()[both].max())
+            del lib
         if on_card:
             r["ms"] = cuda_time_ms(kern, reps)
             r["call_ms"] = cuda_time_ms(kern, reps, hold=False)
             r["plain_ms"] = cuda_time_ms(plain, reps)
             r["msamples_per_s"] = n_windows * S / r["ms"] / 1e3
+            if not ablate:
+                grid = library_grid(sc, *args, WSIZE, vol)
+                r["library_ms"] = cuda_time_ms(lambda: library_sample(vol, grid), reps)
+                r["library_call_ms"] = cuda_time_ms(lambda: library_windows(
+                    sc, *args, WSIZE, luma=luma, volume=vol), reps)
+                del grid
         rec[mode] = r
         outs[mode] = out_k
     return BenchResult(rec, lay, outs)
@@ -239,7 +324,8 @@ def main(argv: Optional[list] = None) -> int:
     for mode, key in (("luma", "KERNEL_MSPS"), ("rgb", "KERNEL_RGB_MSPS")):
         r = rec[mode]
         print(f"{mode} {r['form']}: kernel {r['ms']} ms, plain {r['plain_ms']} ms, "
-              f"bit-equal {r['bitwise_equal_plain']}", file=sys.stderr)
+              f"grid_sample {r['library_ms']} ms, bit-equal {r['bitwise_equal_plain']}",
+              file=sys.stderr)
         if r["msamples_per_s"] is not None:
             print(f"{key}={r['msamples_per_s']:.2f}")
     print(json.dumps(rec))

@@ -75,8 +75,8 @@ def main(argv=None) -> int:
     dscale, ascale = vw.set_scales(scene, coord, images, 1, tau, 7)
     ncc0 = nccops.compute_patch_ncc(scene, images, coord, normal, 1, 7, tau, a1)
     table = pt.from_numpy(coord_np, normal_np, images.cpu().numpy(), args.rows, n_views,
-                          dev, ncc=ncc0.cpu().numpy(), dscale=dscale.cpu().numpy(),
-                          ascale=ascale.cpu().numpy())
+                          ncc=ncc0.cpu().numpy(), dscale=dscale.cpu().numpy(),
+                          ascale=ascale.cpu().numpy(), device=dev)
     p = pr.PropagateParams(
         level=1, csize=2, wsize=7, tau=tau, min_image_num=3, cell_capacity=8,
         angle_threshold0=a1, angle_threshold1=a1,

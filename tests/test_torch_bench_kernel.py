@@ -218,3 +218,54 @@ def test_level_arrays_are_built_once_per_scene_layout(windows):
     off, w, h, n = first
     assert n == len(scene.offsets)
     assert [list(off), list(w), list(h)] == [list(k) for k in key]
+
+
+def _hold_library(scene, win, illum=0):
+    """library_windows against the plain versions, RGB and luma: within
+    0.02 on the 0-255 scale wherever the plain sample is finite; the
+    plain sample is NaN only where its lattice coordinate is not finite
+    (grid_sample's border clamp gives such a sample a value)."""
+    gx, gy = cuda_ncc.lattice(win[2], win[3], win[4], WSIZE)
+    odd = ~(torch.isfinite(gx) & torch.isfinite(gy))
+    for luma, plain in ((False, cuda_ncc.sample_windows_plain),
+                        (True, cuda_ncc.sample_windows_luma_plain)):
+        want = plain(scene, *win, WSIZE, illum)
+        got = bk.library_windows(scene, *win, WSIZE, luma=luma, illum=illum)
+        assert got.shape == want.shape
+        fin = torch.isfinite(want)
+        assert fin.any()
+        assert float((got - want).abs()[fin].max()) <= 0.02
+        c = want.shape[1] // S
+        assert bool((~fin <= odd.repeat(1, c)).all())
+
+
+def test_library_windows_match_the_plain_versions(windows):
+    """One grid_sample call on the level volume gives the plain
+    sampler's windows: the benchmark's CPU windows (grouped layout) and
+    the edge windows on every level."""
+    Ps, sc = bk.bench_scene("cpu", 6, 160, 120)
+    lay = bk.window_layout(sc, Ps, 1024, group=4)
+    _hold_library(sc, tuple(lay[k] for k in ("idx", "lvl", "tl", "dx", "dy")))
+    _hold_library(sc, bk.edge_windows(sc, 1024, seed=3))
+    idx, lvl, tl, dx, dy = windows[2:]
+    _hold_library(windows[1], (_t(idx, torch.int32), _t(lvl, torch.int32),
+                               _t(tl, torch.float32), _t(dx, torch.float32),
+                               _t(dy, torch.float32)))
+
+
+def test_library_windows_index_the_illumination_slice():
+    """On a 3-illumination scene the volume holds a slice per (view,
+    illum, level), and each illumination's windows read their own."""
+    from mvskit_tpu_torch.utils import synthetic
+
+    _, _, sc = synthetic.sphere_scene(n_views=4, width=80, height=60, nillums=3,
+                                      device="cpu")
+    vol = bk.level_volume(sc)
+    assert tuple(vol.shape) == (1, 3, 4 * 3 * len(sc.offsets), 60, 80)
+    assert bk.level_volume(sc) is vol
+    assert bk.level_volume(sc, luma=True).shape[1] == 1
+    win = bk.edge_windows(sc, 512, seed=5)
+    for illum in range(3):
+        _hold_library(sc, win, illum)
+    a, b = (bk.library_windows(sc, *win, WSIZE, illum=i) for i in (0, 2))
+    assert float((a - b).abs().max()) > 1.0

@@ -95,8 +95,8 @@ def sp():
     images = tvw.sort_images(ts, c, n, images, LEVEL, is_fixed=False)
     dscale, ascale = tvw.set_scales(ts, c, images, LEVEL, TAU, WSIZE)
     ncc = tncc.compute_patch_ncc(ts, images, c, n, LEVEL, WSIZE, TAU, A1)
-    tt = tpt.from_numpy(coord, normal, images.numpy(), 512, 8, "cpu", ncc=ncc.numpy(),
-                        dscale=dscale.numpy(), ascale=ascale.numpy())
+    tt = tpt.from_numpy(coord, normal, images.numpy(), 512, 8, ncc=ncc.numpy(),
+                        dscale=dscale.numpy(), ascale=ascale.numpy(), device="cpu")
     tt = tt._replace(alive=tt.alive & (tpt.count_valid(tt.images) > 0))
     jt = jpt.PatchTable(**{k: jnp.asarray(v) for k, v in interop.table_to_numpy(tt).items()})
     alive = tt.alive.clone()
@@ -259,8 +259,8 @@ def _stack(ts, n, ncc, coord=(0.05, 0.05, 0.0, 1.0), capacity=32):
     images = np.full((n, 8), -1, np.int32)
     images[:, 0] = 0
     images[:, 1] = 1
-    return tpt.from_numpy(coord, normal, images, capacity, 8, "cpu",
-                          ncc=np.asarray(ncc, np.float32))
+    return tpt.from_numpy(coord, normal, images, capacity, 8,
+                          ncc=np.asarray(ncc, np.float32), device="cpu")
 
 
 @pytest.mark.parametrize("ncc,kept", [([0.5] * 96, {0, 1, 2}),

@@ -227,3 +227,94 @@ def test_filter_neighbor_whole_table_matches(sp):
                                   2.5, 0.5, chunk=128)
     np.testing.assert_array_equal(tr[0].alive.numpy(), rr[0].alive.numpy())
     assert tr[1] == rr[1] >= 3
+
+
+def _gates(count, resid, denom, quad_threshold):
+    """filterNeighbor's verdict on each row split by gate (the reject
+    rule of filter_neighbor_rows): killed for fewer than 6 neighbours,
+    killed by the quadric, and the survivors with denom < 1, with a
+    residual under the threshold, and with a non-finite residual (which
+    fails ``>=`` and so survives)."""
+    reject = (count < 6) | ((denom >= 1) & (resid >= quad_threshold))
+    fit = ~reject & (denom >= 1)
+    return {"count_lt_6": int((count < 6).sum()),
+            "quadric": int(((count >= 6) & (denom >= 1) & (resid >= quad_threshold)).sum()),
+            "survive_denom_lt_1": int((~reject & (denom < 1)).sum()),
+            "survive_resid_lt_threshold": int((fit & (resid < quad_threshold)).sum()),
+            "survive_resid_not_finite": int((fit & ~np.isfinite(resid)).sum())}
+
+
+def test_lifted_floaters_meet_the_same_gates_as_jax(tmp_path):
+    """chip_smoke.py phase 13 at the pipeline pair's test size: on the
+    final table of a port run (seed + 2 iterations, the small config of
+    tests/test_torch_pipeline.py), every 50th alive row is lifted 0.2
+    off the plane; both packages rebuild the filter grid and run
+    filter_neighbor on that table. Kill mask and count equal; on the
+    floaters the neighbour counts equal, the residuals within 1e-3 and
+    the per-gate counts equal. The neighbour filter kills only some of
+    them: the rest keep a quadric residual under the threshold, in
+    JAX's filter as in the port's."""
+    import jax
+
+    from mvskit_tpu.config import MVSConfig as JMVSConfig
+    from mvskit_tpu.image.scene import load_scene as jload_scene
+    from mvskit_tpu.utils import synthetic as jsyn
+    from mvskit_tpu_torch import interop
+    from mvskit_tpu_torch.pipeline.driver import PMMVS
+    from test_torch_pipeline import small_cfg
+
+    prefix = str(tmp_path)
+    jsyn.write_dataset(prefix, n_views=6, width=160, height=120, n_seeds=48)
+    cfg = small_cfg(prefix)
+    eng = PMMVS(cfg, device="cpu", log=lambda *a: None)
+    eng.seed()
+    for it in range(2):
+        eng.propagate(it)
+        eng.filter()
+        eng.update_threshold()
+        eng.depth += 1
+    fields = interop.table_to_numpy(eng.table)
+    lift = np.nonzero(fields["alive"])[0][::50]
+    fields["coord"][lift, 2] += 0.2
+    tt = interop.table_from_numpy(fields, device="cpu")
+    jt = jpt.PatchTable(**{k: jnp.asarray(v) for k, v in fields.items()})
+    jcfg = small_cfg(prefix, JMVSConfig)
+    js = jload_scene(prefix, jcfg.images, jcfg.nillums, jcfg.max_level,
+                     use_vis_data=bool(jcfg.use_vis_data))
+
+    grid_args = (cfg.level, cfg.csize, cfg.filter_cell_capacity, cfg.neighbor_threshold)
+    filt = (cfg.level, cfg.csize, cfg.tau, cfg.quad_threshold, cfg.neighbor_threshold)
+    caps = dict(max_neighbors=cfg.neighbor_capacity, cand_cap=cfg.neighbor_cand_cap)
+    nb = dict(margin=2, scale=4.0, neighbor_threshold=cfg.neighbor_threshold, **caps)
+
+    def jax_side(s, t, rows):
+        t, g = jfl.rebuild(s, t, *grid_args, additive=False)
+        out, n = jfl.filter_neighbor(s, g, t, *filt, **caps)
+        nbrs, count = jfl.gather_neighbors(s, g, t, rows, cfg.level, cfg.csize, **nb)
+        return (out.alive, n, count) + jfl.quad_residuals(s, t, rows, nbrs, cfg.level,
+                                                          cfg.tau)
+
+    j_alive, j_n, j_count, j_resid, j_denom = (
+        np.asarray(x) for x in jax.jit(jax_side)(js, jt, jnp.asarray(lift, jnp.int32)))
+
+    ts = eng.scene
+    tt, tg = tfl.rebuild(ts, tt, *grid_args, additive=False)
+    out, t_n = tfl.filter_neighbor(ts, tg, tt, *filt, **caps)
+    rows = torch.as_tensor(lift, dtype=torch.int32)
+    nbrs, count = tfl.gather_neighbors(ts, tg, tt, rows, cfg.level, cfg.csize, **nb)
+    resid, denom = tfl.quad_residuals(ts, tt, rows, nbrs, cfg.level, cfg.tau)
+
+    np.testing.assert_array_equal(out.alive.numpy(), j_alive)
+    assert t_n == int(j_n)
+    np.testing.assert_array_equal(count.numpy(), j_count)
+    np.testing.assert_array_equal(denom.numpy(), j_denom)
+    # a floater whose neighbours fit a quadric almost exactly solves a
+    # near-singular 5x5 system: float32 sums in another order move its
+    # residual near 0 by up to a few 1e-4, against a threshold of 2.5
+    np.testing.assert_allclose(resid.numpy(), j_resid, rtol=1e-5, atol=1e-3)
+    gates = _gates(count.numpy(), resid.numpy(), denom.numpy(), cfg.quad_threshold)
+    assert gates == _gates(j_count, j_resid, j_denom, cfg.quad_threshold)
+    killed = int((~out.alive.numpy()[lift]).sum())
+    assert killed == gates["count_lt_6"] + gates["quadric"]
+    assert 0 < killed < len(lift) == sum(gates.values())
+    assert gates["survive_resid_lt_threshold"] > 0

@@ -110,3 +110,34 @@ def test_interop_round_trip(sp):
     for k in interop.TABLE_FIELDS:
         np.testing.assert_array_equal(back[k], np.asarray(getattr(jt, k)))
         assert back[k].dtype == np.asarray(getattr(jt, k)).dtype, k
+
+
+def test_from_numpy_takes_jax_positional_order():
+    """A call in JAX's order (ncc .. vimages positional) fills the same
+    fields; the port's device is keyword-only."""
+    rng = np.random.default_rng(11)
+    n = 12
+    arrays = (rng.normal(size=(n, 4)).astype(np.float32),
+              rng.normal(size=(n, 4)).astype(np.float32),
+              rng.integers(-1, 8, (n, 10)).astype(np.int32), 32, 8,
+              rng.uniform(size=n).astype(np.float32),
+              rng.uniform(size=n).astype(np.float32),
+              rng.uniform(size=n).astype(np.float32),
+              rng.integers(-1, 8, (n, 10)).astype(np.int32))
+    jt = jpt.from_numpy(*arrays)
+    tt = tpt.from_numpy(*arrays, device="cpu")
+    for k in jt._fields:
+        _eq(getattr(tt, k), getattr(jt, k))
+    with pytest.raises(TypeError):
+        tpt.from_numpy(*arrays, "cpu")
+
+
+def test_build_depth_maps_takes_jax_positional_order(sp):
+    """row_start, row_count, row_limit bound by position as JAX binds them."""
+    js, jt, ts, tt = sp
+    jd, ji = jgr.build_depth_maps(js, jt, LEVEL, CSIZE, 3, 5, 64)
+    td, ti = tgr.build_depth_maps(ts, tt, LEVEL, CSIZE, 3, 5, 64)
+    assert td.shape == jd.shape and td.shape[1] == 5
+    _eq(ti, ji)
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=1e-5)
+    assert (ti.numpy() >= 0).any()

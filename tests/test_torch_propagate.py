@@ -72,6 +72,30 @@ def test_generate_hypotheses_matches(sp):
         assert th[4].any()
 
 
+
+def test_generate_hypotheses_takes_jax_positional_gate(sp):
+    """gate_full, gate_worst_ncc bound by position as JAX binds them."""
+    js, jt, ts, tt = sp
+    jp, tp = params(False)
+    jg = jgr.build_grid(js, jt, 1, 2, 8)
+    tg = tgr.build_grid(ts, tt, 1, 2, 8)
+    donors = jpr.select_donors(js, jg, jt, 96)
+    tdon = [torch.as_tensor(np.array(d)) for d in donors]
+    rng = np.random.default_rng(4)
+    full = rng.uniform(size=96) < 0.5
+    worst = rng.uniform(0.0, 1.2, 96).astype(np.float32)
+    rnd = _JaxRound(jax.random.PRNGKey(5))
+    jh = jpr.generate_hypotheses(js, jt, jg, *donors, 0, 1, rnd.k1a, jp,
+                                 jnp.asarray(full), jnp.asarray(worst))
+    th = tpr.generate_hypotheses(ts, tt, tg, *tdon, 0, 1, rnd.jitter(0, 96), tp,
+                                 torch.as_tensor(full), torch.as_tensor(worst))
+    np.testing.assert_allclose(th[0].numpy(), np.asarray(jh[0]), atol=1e-5)
+    np.testing.assert_array_equal(th[2].numpy(), np.asarray(jh[2]))
+    np.testing.assert_allclose(th[3].numpy(), np.asarray(jh[3]), atol=2e-4)
+    np.testing.assert_array_equal(th[4].numpy(), np.asarray(jh[4]))
+    ungated = tpr.generate_hypotheses(ts, tt, tg, *tdon, 0, 1, rnd.jitter(0, 96), tp)
+    assert th[4].any() and (ungated[4] & ~th[4]).any()
+
 def test_insert_patches_matches(sp):
     _, jt, _, tt = sp
     H = 40

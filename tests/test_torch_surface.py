@@ -13,9 +13,21 @@ whole module) or ``relpath:name``, each with a one-line reason naming
 where the port does that job or why it has none. An entry that the
 port does define, or that names nothing in the JAX package, fails, so
 the list cannot go stale.
+
+The same walk holds call signatures. For every public function and
+``Class.method`` (``__init__`` included) that both files define, the
+port's positional parameters begin with JAX's, in JAX's order, so a
+call written for the JAX signature binds the same parameters in the
+port; port-only parameters come after them. Every JAX keyword-only
+parameter is a parameter of the port's. A name may differ only through
+``SUBSTITUTIONS``, a JAX parameter may be missing only through
+``DROPPED`` and a whole function may differ only through
+``EXEMPT_SIGNATURES``, each entry with a one-line reason; an entry that
+no longer matches anything fails.
 """
 
 import ast
+import functools
 import os
 
 import pytest
@@ -137,3 +149,202 @@ def test_not_ported_entry_holds(key):
     assert reason.strip() and "\n" not in reason, f"{key}: one line of reason"
     stale = stale_reason(key)
     assert stale is None, f"NOT_PORTED[{key!r}] is stale: {stale}"
+
+
+# "JAX -> port" renames allowed anywhere, or only in one function when the
+# key starts with "relpath:name ".
+SUBSTITUTIONS = {
+    "key -> noise":
+        "a JAX PRNG key becomes a round's noise source (pipeline/propagate.py "
+        "TorchNoise, or the tests' replay of JAX's draws)",
+    "key -> deltas":
+        "a JAX PRNG key becomes the refinement's drawn candidate offsets, which the "
+        "caller draws from its noise source",
+    "key -> jitter":
+        "a JAX PRNG key becomes the donors' drawn pixel jitter, which the caller draws "
+        "from its noise source",
+    "dtype -> device":
+        "the JAX camera arrays take a dtype; the port's are float32 tensors and take "
+        "the device they live on",
+    "pallas_levels -> device":
+        "the JAX scene builds the Pallas level planes host-side on request; the port "
+        "always builds its planes and takes the device instead",
+    "parallel/shard.py:replicate mesh -> device":
+        "a JAX replicated NamedSharding over a mesh becomes a copy on one device; the "
+        "port replicates per dp device (parallel/shard.py replicas)",
+}
+
+# "relpath:name parameter" -> why the port has no such parameter.
+DROPPED = {
+    "pipeline/refine.py:refine_batch grad_steps":
+        "the differentiable polish is retired (GRADPOLISH.json); "
+        "cfg.refine_grad_steps > 0 raises in pipeline/driver.py check_supported",
+    "pipeline/refine.py:refine_batch grad_lr":
+        "the step size of the retired differentiable polish (GRADPOLISH.json)",
+}
+
+# "relpath:name" -> why its signature is the port's own.
+EXEMPT_SIGNATURES = {
+    "parallel/multihost.py:init_distributed":
+        "torch.distributed by design: backend, init_method, world_size and rank are "
+        "explicit, where JAX reads a pod's coordinator",
+    "parallel/multihost.py:global_view_mesh":
+        "torch.distributed by design: the mesh is built from each rank's own devices "
+        "and a process group, where JAX reads jax.devices()",
+}
+
+
+def _scoped(key):
+    """("relpath:name" or None, rest) of a SUBSTITUTIONS / DROPPED key."""
+    head, sep, rest = key.partition(" ")
+    return (head, rest) if sep and ":" in head else (None, key)
+
+
+def signatures(src):
+    """{name: ast.arguments} of the top-level public functions and of the
+    public methods (and ``__init__``) of the top-level public classes."""
+    out = {}
+    for node in ast.parse(src).body:
+        if not isinstance(node, _DEFS) or node.name.startswith("_"):
+            continue
+        if isinstance(node, ast.ClassDef):
+            out.update(
+                (f"{node.name}.{m.name}", m.args) for m in node.body
+                if isinstance(m, (ast.FunctionDef, ast.AsyncFunctionDef))
+                and (m.name == "__init__" or not m.name.startswith("_")))
+        else:
+            out[node.name] = node.args
+    return out
+
+
+def _positional(args):
+    return [a.arg for a in args.posonlyargs + args.args]
+
+
+def signature_faults(rel, jax_src, port_src, used=None):
+    """The shared functions of `rel` whose port signature breaks the rule,
+    one message each. Adds every SUBSTITUTIONS / DROPPED /
+    EXEMPT_SIGNATURES key that excused a difference to `used`."""
+    used = set() if used is None else used
+    jax_sigs, port_sigs = signatures(jax_src), signatures(port_src)
+    faults = []
+    for name in sorted(set(jax_sigs) & set(port_sigs)):
+        fn = f"{rel}:{name}"
+        if fn in EXEMPT_SIGNATURES:
+            used.add(fn)
+            continue
+        ja, pa = jax_sigs[name], port_sigs[name]
+        port_pos = _positional(pa)
+        port_all = set(port_pos) | {a.arg for a in pa.kwonlyargs}
+
+        def renamed(j, p):
+            for key in SUBSTITUTIONS:
+                scope, rest = _scoped(key)
+                if rest == f"{j} -> {p}" and scope in (None, fn):
+                    used.add(key)
+                    return True
+            return False
+
+        def dropped(j):
+            key = f"{fn} {j}"
+            if key in DROPPED and j not in port_all:
+                used.add(key)
+                return True
+            return False
+
+        bad = []
+        i = 0
+        for j in _positional(ja):
+            if dropped(j):
+                continue
+            p = port_pos[i] if i < len(port_pos) else None
+            if p is None:
+                bad.append(f"JAX positional {j!r} is not positional in the port")
+            elif p != j and not renamed(j, p):
+                bad.append(f"position {i}: JAX {j!r}, port {p!r}")
+            i += 1
+        for j in (a.arg for a in ja.kwonlyargs):
+            if j not in port_all and not dropped(j) and not any(
+                    renamed(j, p) for p in port_all):
+                bad.append(f"JAX keyword {j!r} is missing")
+        if ja.vararg and not pa.vararg:
+            bad.append(f"JAX takes *{ja.vararg.arg}, the port does not")
+        if bad:
+            faults.append(f"{name}: " + "; ".join(bad))
+    return faults
+
+
+@functools.lru_cache(maxsize=None)
+def _source(path):
+    with open(path) as f:
+        return f.read()
+
+
+def file_signature_faults(rel, used=None):
+    port = os.path.join(PORT_PKG, rel)
+    if rel in NOT_PORTED or not os.path.exists(port):
+        return []
+    return signature_faults(rel, _source(os.path.join(JAX_PKG, rel)), _source(port),
+                            used)
+
+
+@pytest.mark.parametrize("rel", FILES)
+def test_port_signatures_follow_jax(rel):
+    faults = file_signature_faults(rel)
+    assert not faults, (
+        f"mvskit_tpu_torch/{rel}: {faults}. Put JAX's positional parameters first, "
+        f"in JAX's order, and the port's own after them, keyword-only; or add an "
+        f"entry to SUBSTITUTIONS / DROPPED / EXEMPT_SIGNATURES with a one-line reason")
+
+
+def _used_entries():
+    used = set()
+    for rel in FILES:
+        file_signature_faults(rel, used)
+    return used
+
+
+@pytest.mark.parametrize("key", sorted(SUBSTITUTIONS) + sorted(DROPPED)
+                         + sorted(EXEMPT_SIGNATURES))
+def test_signature_entry_holds(key):
+    reason = {**SUBSTITUTIONS, **DROPPED, **EXEMPT_SIGNATURES}[key]
+    assert reason.strip() and "\n" not in reason, f"{key}: one line of reason"
+    assert key in _used_entries(), f"{key!r} excuses no difference: remove it"
+
+
+JAX_SRC = """
+def f(scene, table, row_start=0, row_count=None, row_limit=None):
+    pass
+
+def g(a, key, b=1):
+    pass
+
+class C:
+    def __init__(self, cfg, scene=None, log=print, view_mesh=None):
+        pass
+"""
+
+
+def test_signature_check_finds_a_swapped_pair():
+    assert signature_faults("core/x.py", JAX_SRC, JAX_SRC) == []
+    port = JAX_SRC.replace("row_start=0, row_count=None, row_limit=None",
+                           "row_limit=None, row_start=0, row_count=None")
+    port = port.replace("log=print, view_mesh=None",
+                        "log=print, device='cuda', view_mesh=None")
+    faults = signature_faults("core/x.py", JAX_SRC, port)
+    assert [f.split(":")[0] for f in faults] == ["C.__init__", "f"], faults
+    assert "position 2: JAX 'row_start', port 'row_limit'" in faults[1]
+    assert "position 4: JAX 'view_mesh', port 'device'" in faults[0]
+
+
+def test_signature_check_takes_keyword_only_port_parameters_and_renames():
+    port = JAX_SRC.replace("row_limit=None):", "row_limit=None, *, dp_devices=None):")
+    port = port.replace("view_mesh=None):", "view_mesh=None, *, device='cuda'):")
+    assert signature_faults("core/x.py", JAX_SRC, port) == []
+    used = set()
+    renamed = port.replace("def g(a, key, b=1)", "def g(a, noise, b=1)")
+    assert signature_faults("core/x.py", JAX_SRC, renamed, used) == []
+    assert used == {"key -> noise"}
+    unlisted = port.replace("def g(a, key, b=1)", "def g(a, seed, b=1)")
+    assert signature_faults("core/x.py", JAX_SRC, unlisted) == [
+        "g: position 1: JAX 'key', port 'seed'"]

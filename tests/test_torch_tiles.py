@@ -61,8 +61,9 @@ def sp():
     images = tvw.sort_images(ts, c, n, images, LEVEL, is_fixed=False)
     dscale, ascale = tvw.set_scales(ts, c, images, LEVEL, 6, 7)
     ncc = tncc.compute_patch_ncc(ts, images, c, n, LEVEL, 7, 6, a)
-    tt = tpt.from_numpy(c.numpy(), n.numpy(), images.numpy(), 1024, 6, "cpu",
-                        ncc=ncc.numpy(), dscale=dscale.numpy(), ascale=ascale.numpy())
+    tt = tpt.from_numpy(c.numpy(), n.numpy(), images.numpy(), 1024, 6,
+                        ncc=ncc.numpy(), dscale=dscale.numpy(), ascale=ascale.numpy(),
+                        device="cpu")
     tt = tt._replace(alive=tt.alive & (tpt.count_valid(tt.images) > 0))
     jt = JPatchTable(**{k: jnp.asarray(v) for k, v in interop.table_to_numpy(tt).items()})
     return js, jt, ts, tt
@@ -204,6 +205,27 @@ def test_tiled_propagate_round_matches(sp, k):
         mesh, s, t, kk, jp, 1, 0.7, 0.4))(js, jt, key)
     tt2, tst = ttiles.tiled_propagate_round(_tmesh(k), ts, tt, _JaxRound(key), *args,
                                             row_limit=64)
+    for a, b in zip(jst, tst):
+        assert abs(int(a) - b) <= max(1, 0.01 * int(a)), (jst, tst)
+    new = np.asarray(jt2.alive) & ~np.asarray(jt.alive)
+    close = np.abs(tt2.coord.numpy()[new] - np.asarray(jt2.coord)[new]).max(1) <= 1e-3
+    close &= tt2.alive.numpy()[new]
+    assert new.sum() > 0 and close.mean() >= 0.98, close.mean()
+
+
+def test_tiled_propagate_round_takes_jax_positional_axis(sp):
+    """use_depth, quad_threshold and the mesh axis bound by position as
+    JAX binds them (an axis named "rows", which no default supplies)."""
+    js, jt, ts, tt = sp
+    p = tpr.PropagateParams(**PARAMS)
+    key = jax.random.PRNGKey(7)
+    mesh = jsh.make_mesh(2, axis="rows")
+    jp = jpr.PropagateParams(**PARAMS)
+    jt2, jst = jax.jit(lambda s, t, kk: jtiles.tiled_propagate_round(
+        mesh, s, t, kk, jp, 1, 0.7, 0.4, True, 2.5, "rows"))(js, jt, key)
+    tt2, tst = ttiles.tiled_propagate_round(
+        tsh.make_mesh(2, "rows", device="cpu"), ts, tt, _JaxRound(key), p, 1, 0.7, 0.4,
+        True, 2.5, "rows")
     for a, b in zip(jst, tst):
         assert abs(int(a) - b) <= max(1, 0.01 * int(a)), (jst, tst)
     new = np.asarray(jt2.alive) & ~np.asarray(jt.alive)

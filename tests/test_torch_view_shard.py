@@ -61,8 +61,9 @@ def _seeded_table(ts, coord, normal, views, capacity=1024):
     images = tvw.sort_images(ts, c, n, _t(views), LEVEL, is_fixed=False)
     dscale, ascale = tvw.set_scales(ts, c, images, LEVEL, TAU, WSIZE)
     ncc = tncc.compute_patch_ncc(ts, images, c, n, LEVEL, WSIZE, TAU, A1)
-    return tpt.from_numpy(coord, normal, images.numpy(), capacity, ts.n_images, "cpu",
-                          ncc=ncc.numpy(), dscale=dscale.numpy(), ascale=ascale.numpy())
+    return tpt.from_numpy(coord, normal, images.numpy(), capacity, ts.n_images,
+                          ncc=ncc.numpy(), dscale=dscale.numpy(), ascale=ascale.numpy(),
+                          device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -218,6 +219,36 @@ def test_driver_accepts_view_mesh(sp):
     with pytest.raises(ValueError, match="twice"):
         PMMVS(cfg, scene=ts, log=lambda *a: None, view_mesh=mesh)
 
+
+
+def test_driver_takes_view_mesh_positionally(sp):
+    """PMMVS(cfg, scene, log, view_mesh), JAX's positional order, shards
+    the views in both packages, and the port's sharded round equals its
+    unsharded one bit for bit."""
+    from mvskit_tpu.config import MVSConfig as JMVSConfig
+    from mvskit_tpu.pipeline.driver import PMMVS as JPMMVS
+    from mvskit_tpu_torch.config import MVSConfig
+    from mvskit_tpu_torch.pipeline.driver import PMMVS
+
+    js, ts, coord, normal, views = sp
+    tt = _seeded_table(ts, coord, normal, views)
+    kw = dict(prefix=".", images=list(range(8)), level=LEVEL, csize=2, wsize=WSIZE,
+              min_image_num=3, max_patches=1024, donor_budget=64, gauntlet_chunk=32,
+              refine_rounds=2, refine_cands=2, prop_rounds=1, n_iterations=1)
+    quiet = lambda *a: None  # noqa: E731
+    jmesh = jsh.make_mesh(8, axis="view")
+    assert JPMMVS(JMVSConfig(**kw), js, quiet, jmesh).scene.view_mesh is jmesh
+    mesh = tsh.make_mesh(8, "view", device="cpu")
+    tables = []
+    for eng in (PMMVS(MVSConfig(**kw), ts, quiet, mesh, device="cpu"),
+                PMMVS(MVSConfig(**kw), ts, quiet, device="cpu")):
+        eng.table = tt
+        eng.propagate(0)
+        tables.append(eng.table)
+        assert (eng.scene.view_mesh is mesh) == (len(tables) == 1)
+    assert tables[0].n_alive() > tt.n_alive()
+    for a, b in zip(*tables):
+        assert torch.equal(a, b)
 
 def test_view_count_must_divide(sp):
     _, ts, *_ = sp
