@@ -64,8 +64,10 @@ Phases (any failure raises and the process exits non-zero):
      K1 in hypothesis scoring (`shard.DP_K1`);
  10. multihost: `mvskit_tpu_torch.tools.multihost_ncc` as two processes
      on the card joined by gloo, then as one process on nccl (a real
-     NCCL init and all_reduce); each rank's view-sharded NCC equals its
-     single-process value (each child has a timeout).
+     NCCL init and all_reduce); each rank's view-sharded NCC, and its
+     gradient-polished refinement (the backward kernel launched, the
+     gradient summed over the ranks), equal its single-process values
+     (each child has a timeout).
  11. grid and round benches (run after phase 5, before phase 7 rewrites
      the RGB path's .patch): `tools.bench_grid.run` at production
      capacity (2^18 rows, 57,850 alive) on phase 3's dataset, plain,
@@ -79,6 +81,19 @@ Phases (any failure raises and the process exits non-zero):
      luma group 32); `tools.ab_refine_chip.run` at B = 4,096 (its grouped
      and ungrouped luma arms equal bit for bit); `tools.ab_luma.run`; and
      one `tools.coverage_sweep.run` configuration on phase 3's dataset.
+ 14. polish (run after phase 5, on phase 3's dataset): the backward
+     kernel of the window sampler (csrc/sample_windows_grad.cu) on K1's
+     windows (RGB) and K3u's (luma) with a seeded cotangent and on the
+     edge lattices at 7 x 7 and 5 x 5, two launches bit for bit and
+     within GRAD_RTOL of its plain version (autograd through the gather
+     path, in float64 from the same lattice), timed against its bound,
+     the float32 plain version and grid_sample's backward; then `PMMVS`
+     with refine_grad_steps=4 at full width and depth (quality against
+     the round's bar, K1 / K2 / backward launches, rows each polish step
+     accepted, the polish's share of the refinement's device time), and
+     one-iteration runs: luma with refine_rgb_tail 0 (the luma
+     backward), and the meshes (1,2,1) and (2,1,1) with the polish, each
+     equal to the unsharded polished run bit for bit.
  13. surface (run after phase 11, on the RGB path's final table with
      planted floaters and the filter pass's first grid):
      `filters.filter_neighbor` equal to `filter_neighbor_rows(0,
@@ -106,6 +121,10 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 WSIZE, LEVEL, TAU, N_CANDS = 7, 1, 6, 32
 KERNEL_SOURCE = "mvskit_tpu_torch/csrc/sample_windows.cu"
+GRAD_SOURCE = "mvskit_tpu_torch/csrc/sample_windows_grad.cu"
+# the backward replaces no TPU kernel: the JAX polish takes the gradient
+# by XLA's autodiff of the gather path (gscene drops the Pallas planes)
+REPLACES_GRAD = "mvskit_tpu/pipeline/refine.py:290"
 REPLACES = "mvskit_tpu/ops/pallas_ncc.py:190"
 REPLACES_FUSED = "mvskit_tpu/ops/pallas_ncc.py:323"
 REPLACES_ABLATE = "mvskit_tpu/ops/pallas_ncc.py:194"
@@ -118,6 +137,12 @@ HBM_BYTES_PER_S, F32_FLOPS = 3.35e12, 67e12
 # do the same arithmetic; nocompute only the lattice; nomm the lattice
 # and the unweighted tap sums (RGB 3 x 4 adds, luma 3 adds)
 FLOPS_PER_SAMPLE = {"rgb": 8 + 4 + 4 + 24, "luma": 8 + 4 + 11}
+# the backward kernel per sample: lattice 8, fractions 4, the two clip
+# slopes' differences 2; per channel the two tap-difference brackets (4
+# subtractions, 4 multiplications, 2 additions) and their products with
+# the cotangent into the x and y sums (4); then the two slopes (2) and
+# the six partial sums (4 multiplications + 6 additions)
+GRAD_FLOPS_PER_SAMPLE = {"rgb": 8 + 4 + 2 + 3 * 14 + 2 + 10, "luma": 8 + 4 + 2 + 14 + 2 + 10}
 ABLATE_FLOPS = {("rgb", "nocompute"): 8, ("luma", "nocompute"): 8,
                 ("rgb", "nomm"): 8 + 12, ("luma", "nomm"): 8 + 3}
 # limits per path (acc_mean max, comp_frac min) at 0.05 against the
@@ -162,7 +187,8 @@ INSTANCE = {
 # EDGE_WSIZE), every K5 switch
 EDGE_WSIZE = 5
 LAUNCHED_INSTANCES = tuple(f"{k}<{c}, {ws}, {a}>" for k in ("window_kernel", "fused_kernel")
-                           for c in (3, 1) for ws in (WSIZE, 0) for a in range(6))
+                           for c in (3, 1) for ws in (WSIZE, 0) for a in range(6)) + tuple(
+    f"window_grad_kernel<{c}, {ws}>" for c in (3, 1) for ws in (WSIZE, 0))
 
 
 def log(*a):
@@ -272,15 +298,19 @@ def touched_pixels(scene, idx, lvl, tl, dx, dy, mode: str, ablate: str = "") -> 
     return int(seen.sum())
 
 
-def bound(nwin: int, mode: str, touched: int, ablate: str = ""):
+def bound(nwin: int, mode: str, touched: int, ablate: str = "", grad: bool = False):
     """Least time (ms) for the kernel's work on an H100 and what bounds
     it: the bytes it must move (32 B of window parameters per window,
-    each touched plane word once, each output float once) over HBM
-    bandwidth, against its float32 operations over the f32 peak."""
+    each touched plane word once, each output float once; with `grad`,
+    the backward's, each grad_out float read once and 24 B of gradients
+    written per window) over HBM bandwidth, against its float32
+    operations over the f32 peak."""
     S = WSIZE * WSIZE
     out_floats = nwin * S * (1 if mode == "luma" else 3)
-    nbytes = nwin * 32 + touched * 4 + out_floats * 4
-    flops = nwin * S * ABLATE_FLOPS.get((mode, ablate), FLOPS_PER_SAMPLE[mode])
+    nbytes = nwin * 32 + touched * 4 + out_floats * 4 + (nwin * 24 if grad else 0)
+    per_sample = (GRAD_FLOPS_PER_SAMPLE[mode] if grad
+                  else ABLATE_FLOPS.get((mode, ablate), FLOPS_PER_SAMPLE[mode]))
+    flops = nwin * S * per_sample
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
 
@@ -835,7 +865,8 @@ DP_STAGES = ("grid", "vimages", "donors", "hypotheses", "gauntlet", "insert", "o
 
 def mesh_phase(dev, workdir, rgb):
     """Phase 9: the unsharded RGB run through PMMVS on phase 3's dataset,
-    then each mesh of MESHES as logical shards of the card, each with
+    then each mesh of MESHES, on the scene that run loaded, as logical
+    shards of the card, each with
     the counters set to 0 just before it and read just after. A sharded
     run must keep the unsharded run's alive counts per iteration and its
     cloud bit for bit, and each view shard must launch K1 and K2.
@@ -847,7 +878,7 @@ def mesh_phase(dev, workdir, rgb):
     plane = os.path.join(workdir, "plane16")
     out = {}
     engine, *res = engine_path("mesh_1x1x1", dev, plane)
-    base = engine.collect()
+    base, scene = engine.collect(), engine.scene
     out["1x1x1"] = summarize("mesh_1x1x1", *res)
     if out["1x1x1"]["alive_per_iter"] != rgb["alive_per_iter"]:
         raise AssertionError(f"unsharded PMMVS run {out['1x1x1']['alive_per_iter']} differs "
@@ -855,7 +886,7 @@ def mesh_phase(dev, workdir, rgb):
     del engine
     for dp, view, tile in MESHES:
         name = f"{dp}x{view}x{tile}"
-        engine, *res = engine_path(f"mesh_{name}", dev, plane,
+        engine, *res = engine_path(f"mesh_{name}", dev, plane, scene=scene,
                                    mesh_devices=[card0] * (dp * view * tile),
                                    mesh_dp=dp, mesh_view=view, mesh_tile=tile)
         got = engine.collect()
@@ -1130,8 +1161,10 @@ def refine_tools_phase(dev, workdir):
 
 def multihost_phase():
     """Phase 10: tools/multihost_ncc as two ranks on the card joined by
-    gloo, then as one rank on nccl. Every child has a timeout; one that
-    fails, disagrees or hangs fails the phase. Returns the records."""
+    gloo, then as one rank on nccl: view-sharded NCC and the polished
+    refinement against the rank's single-process run. Every child has a
+    timeout; one that fails, disagrees or hangs fails the phase. Returns
+    the records."""
     import socket
 
     env = dict(os.environ)
@@ -1167,12 +1200,247 @@ def multihost_phase():
                 with open(o) as f:
                     recs.append(json.load(f))
         for rec in recs:
-            if not (rec["equal"] and rec["backend"] == backend
-                    and rec["launches"].get("ungrouped", 0) > 0):
+            if not (rec["equal"] and rec["polish_equal"] and rec["polish_moved"] > 0
+                    and rec["backend"] == backend and rec["launches"].get("ungrouped", 0) > 0
+                    and rec["launches"].get("grad", 0) > 0):
                 raise AssertionError(f"multihost {backend}: {rec}")
         log(f"[multihost] {backend} x {world}: " + json.dumps(recs))
         records[backend] = recs
     return records
+
+
+# the backward kernel against its plain version: each output within
+# GRAD_RTOL of the sum of its terms' magnitudes (cuda_ncc.grad_scale) of
+# the plain version evaluated in float64 from the same float32 lattice;
+# the float32 plain version, which forms each tap's product with the
+# cotangent before subtracting (as JAX's autodiff does), strays a few
+# 1e-5 of that scale by itself, so the kernel, which subtracts the taps
+# first, is held to the float64 evaluation
+GRAD_RTOL = 1e-5
+# the library yardstick's backward (grid_sample's gradient in its grid,
+# chained to tl, dx, dy) against the kernel, on windows whose every
+# sample lies inside its level and at least LIBRARY_GRAD_MARGIN px from
+# an integer (elsewhere the two take different taps or slopes): within
+# LIBRARY_GRAD_RTOL of the same scale (the coordinates' normalise /
+# unnormalise round trip moves a sample by about 1e-4 px)
+LIBRARY_GRAD_RTOL = 1e-3
+LIBRARY_GRAD_MARGIN = 1e-3
+# polish steps and step size of the polished path (GRADPOLISH.json's arms)
+GRAD_STEPS, GRAD_LR = 4, 0.5
+# the polished RGB path's quality bar: the round's acc_mean and comp_frac
+POLISH_LIMITS = (ACC_MEAN_BAR, 0.99)
+
+
+def grad_check(scene, args, mode, seed, wsize=WSIZE):
+    """The backward kernel on one window set: two launches bit for bit,
+    against the float64 plain version within GRAD_RTOL, with its NaN
+    pattern (and the float32 plain version's NaN pattern and distance
+    beside). Returns (record, cotangent, kernel gradients, scale)."""
+    import torch
+
+    from mvskit_tpu_torch.ops import cuda_ncc
+    from mvskit_tpu_torch.tools.bench_kernel import bits_equal
+
+    luma = mode == "luma"
+    idx = args[0]
+    C = 1 if luma else 3
+    gen = torch.Generator(device=idx.device).manual_seed(seed)
+    cot = torch.randn((idx.shape[0], C * wsize * wsize), generator=gen, device=idx.device)
+    got = cuda_ncc.sample_windows_grad(scene, *args, wsize, cot, luma=luma)
+    again = cuda_ncc.sample_windows_grad(scene, *args, wsize, cot, luma=luma)
+    torch.cuda.synchronize()
+    f64 = torch.float64
+    want = cuda_ncc.sample_windows_grad_plain(scene, *args, wsize, cot, luma=luma, dtype=f64)
+    p32 = cuda_ncc.sample_windows_grad_plain(scene, *args, wsize, cot, luma=luma)
+    scale = cuda_ncc.grad_scale(cuda_ncc.sample_grad_terms(
+        scene, *args, wsize, cot, luma=luma, dtype=f64), wsize)
+    rel = abs_err = rel32 = abs32 = 0.0
+    nan_equal, nans = True, 0
+    for g, a, w, p, sc in zip(got, again, want, p32, scale):
+        if not bits_equal(g, a):
+            raise AssertionError(f"backward {mode}: two launches differ")
+        nan_equal &= all(torch.equal(torch.isnan(x), torch.isnan(w)) and
+                         torch.equal(torch.isfinite(x), torch.isfinite(w)) for x in (g, p))
+        nans += int(torch.isnan(w).sum())
+        fin = torch.isfinite(w)
+        if fin.any():
+            d, d32 = (g.double() - w).abs()[fin], (p.double() - w).abs()[fin]
+            rel = max(rel, (d / sc[fin]).max().item())
+            rel32 = max(rel32, (d32 / sc[fin]).max().item())
+            abs_err = max(abs_err, (g - p).abs()[fin].max().item())
+            abs32 = max(abs32, d32.max().item())
+    rec = {"windows": idx.shape[0], "max_rel_err_f64": rel, "max_abs_err": abs_err,
+           "plain_f32_max_rel_err_f64": rel32, "plain_f32_max_abs_err_f64": abs32,
+           "nan_outputs": nans, "nan_pattern_equal": nan_equal, "bitwise_repeat": True}
+    if not (nan_equal and rel <= GRAD_RTOL):
+        raise AssertionError(f"backward {mode}, wsize {wsize}: kernel differs from its plain "
+                             f"version: {rec}")
+    return rec, cot, got, scale
+
+
+def library_grad(scene, args, mode, cot, got, scale):
+    """The library yardstick of the backward: the gradient of one 5-D
+    grid_sample call (tools/bench_kernel.library_windows) in its grid,
+    timed alone as `ms` is (`library_ms`), and chained to tl, dx, dy,
+    against the kernel on the windows where both take the same taps and
+    slopes."""
+    import torch
+
+    from mvskit_tpu_torch.ops import cuda_ncc
+    from mvskit_tpu_torch.tools import bench_kernel as bk
+
+    idx, lvl, tl, dx, dy = args
+    luma = mode == "luma"
+    B, C, S = idx.shape[0], (1 if luma else 3), WSIZE * WSIZE
+    vol = bk.level_volume(scene, luma)
+    cot_lib = cot.reshape(B, C, S).permute(1, 0, 2).reshape(1, C, B, S, 1).contiguous()
+    grid = bk.library_grid(scene, idx, lvl, tl, dx, dy, WSIZE, vol).detach().requires_grad_()
+    out = bk.library_sample(vol, grid)
+    library_ms = min(bk.cuda_time_ms(lambda: torch.autograd.grad(
+        out, grid, cot_lib, retain_graph=True), 7) for _ in range(2))
+    del out, grid
+    leaves = [t.clone().requires_grad_() for t in (tl, dx, dy)]
+    with torch.enable_grad():
+        out = bk.library_sample(vol, bk.library_grid(scene, idx, lvl, *leaves, WSIZE, vol))
+        lib = torch.autograd.grad(out, leaves, cot_lib)
+    gx, gy = cuda_ncc.lattice(tl, dx, dy, WSIZE)
+    lv = lvl.long().unsqueeze(1)
+    w, h = scene.lvl_widths[lv].float(), scene.lvl_heights[lv].float()
+
+    def clean(c, lim):
+        frac = c - torch.floor(c)
+        return ((c > 0) & (c < lim - 1) & (frac > LIBRARY_GRAD_MARGIN)
+                & (frac < 1 - LIBRARY_GRAD_MARGIN)).all(1)
+
+    ok = clean(gx, w) & clean(gy, h)
+    err = max(((a - g).abs()[ok] / sc[ok]).max().item() for a, g, sc in zip(lib, got, scale))
+    rec = {"library_ms": library_ms, "library_windows_compared": int(ok.sum()),
+           "library_max_rel_err": err}
+    if not (ok.sum() > B // 2 and err <= LIBRARY_GRAD_RTOL):
+        raise AssertionError(f"backward {mode}: grid_sample's gradient differs: {rec}")
+    return rec
+
+
+def grad_kernel_phase(dev):
+    """Phase 14 (kernel): the backward kernel on K1's window set (RGB,
+    the gauntlet's 4,096 patches x 6 views) and K3u's (luma, the
+    refinement candidates) with a seeded cotangent, and on the edge
+    lattices at 7 x 7 and 5 x 5: two launches bit for bit, against the
+    plain version (GRAD_RTOL), timed against its bound, the plain
+    version and grid_sample's backward. Returns {mode: record}."""
+    import torch
+
+    from mvskit_tpu_torch.ops import cuda_ncc
+    from mvskit_tpu_torch.tools import bench_kernel as bk
+
+    scene, sets = window_sets(dev)
+    card = card_line()
+    records = {}
+    for mode, wset in (("rgb", "ungrouped"), ("luma", "grouped")):
+        args = tuple(sets[wset][:5])
+        luma = mode == "luma"
+        rec, cot, got, scale = grad_check(scene, args, mode, seed=14)
+        touched = touched_pixels(scene, *args, mode)
+        b_ms, b_by, nbytes, flops = bound(rec["windows"], mode, touched, grad=True)
+        kern = lambda: cuda_ncc.sample_windows_grad(scene, *args, WSIZE, cot, luma=luma)  # noqa: E731
+        plain = lambda: cuda_ncc.sample_windows_grad_plain(  # noqa: E731
+            scene, *args, WSIZE, cot, luma=luma)
+        ms, plain_ms = [], []
+        for _ in range(2):
+            ms.append(bk.cuda_time_ms(kern, 7))
+            plain_ms.append(bk.cuda_time_ms(plain, 7))
+        rec.update(touched_plane_words=touched, bytes=nbytes, flops=flops, bound_ms=b_ms,
+                   bound_by=b_by, ms_runs=ms, plain_ms_runs=plain_ms, ms=min(ms),
+                   plain_ms=min(plain_ms))
+        rec["bound_share"] = b_ms / rec["ms"]
+        rec.update(library_grad(scene, args, mode, cot, got, scale))
+        edge = {}
+        for wsize in (WSIZE, EDGE_WSIZE):
+            e = grad_check(scene, bk.edge_windows(scene, 64 * N_CANDS, seed=wsize), mode,
+                           wsize, wsize)[0]
+            if e["nan_outputs"] <= 0:
+                raise AssertionError(f"backward {mode}: the edge lattices gave no NaN")
+            edge[str(wsize)] = {k: e[k] for k in ("windows", "max_rel_err_f64", "nan_outputs")}
+        rec["edge_lattices"] = edge
+        log(f"[polish] backward {mode} on {card}: " + json.dumps(rec))
+        records[mode] = rec
+        del cot, got, scale
+        torch.cuda.empty_cache()
+    bk._volume.cache_clear()
+    return records
+
+
+def polish_path(tag, dev, plane, **overrides):
+    """engine_path with the polish recorded (utils/profiling.polish_stats):
+    its summary gains the rows accepted per polish step and the polish's
+    share of the refinement's device time. Returns (engine, summary)."""
+    from mvskit_tpu_torch.utils import profiling
+
+    with profiling.polish_stats() as stats:
+        engine, *res = engine_path(tag, dev, plane, **overrides)
+    summary = summarize(tag, *res)
+    summary["polish"] = stats.as_dict()
+    log(f"[{tag}] polish " + json.dumps(summary["polish"]))
+    return engine, summary
+
+
+def polish_phase(dev, workdir, rgb):
+    """Phase 14 (path): PMMVS with refine_grad_steps=4 on phase 3's
+    dataset at full width and depth (its quality against POLISH_LIMITS,
+    its K1, K2 and backward launches, the rows each polish step
+    accepted, the polish's share of refinement), then short runs (one
+    iteration): luma with refine_rgb_tail 0 (the luma backward), and the
+    meshes (1,2,1) and (2,1,1) with the polish, each equal to the
+    unsharded polished run at that depth bit for bit. Returns {run:
+    summary}."""
+    import numpy as np
+    import torch
+
+    card0 = torch.device("cuda", 0)
+    plane = os.path.join(workdir, "plane16")
+    polish = dict(refine_grad_steps=GRAD_STEPS, refine_grad_lr=GRAD_LR)
+    out = {}
+    engine, out["rgb"] = polish_path("polish", dev, plane, **polish)
+    short = dict(polish, n_iterations=1, scene=engine.scene)
+    del engine
+    r = out["rgb"]
+    if not (r["launches"]["grad"] > 0 and r["launches"]["ungrouped"] > 0
+            and r["launches"]["grouped"] > 0):
+        raise AssertionError(f"polished path missed a kernel: {r['launches']}")
+    if not (len(r["alive_per_iter"]) == 3 and min(r["polish"]["accepted"]) > 0):
+        raise AssertionError(f"polished path: {r['alive_per_iter']}, {r['polish']}")
+    check_quality("polish", r["quality"], POLISH_LIMITS)
+    log(f"[polish] wall {r['wall_s']:.3f} s vs RGB {rgb['wall_s']:.3f} s (cli.main); "
+        f"launches K1 {r['launches']['ungrouped']} K2 {r['launches']['grouped']} backward "
+        f"{r['launches']['grad']} vs RGB K1 {rgb['launches']['ungrouped']} K2 "
+        f"{rgb['launches']['grouped']}")
+    _, out["luma"] = polish_path("polish_luma", dev, plane, luma_refine=True,
+                                 refine_rgb_tail=0, **short)
+    if out["luma"]["launches"]["luma_grad"] <= 0:
+        raise AssertionError(f"luma polish missed its backward: {out['luma']['launches']}")
+    engine, out["1x1x1"] = polish_path("polish_1x1x1", dev, plane, **short)
+    base = engine.collect()
+    del engine
+    for dp, view, tile in ((1, 2, 1), (2, 1, 1)):
+        name = f"{dp}x{view}x{tile}"
+        engine, summary = polish_path(f"polish_{name}", dev, plane,
+                                      mesh_devices=[card0] * (dp * view * tile), mesh_dp=dp,
+                                      mesh_view=view, mesh_tile=tile, **short)
+        got = engine.collect()
+        del engine
+        out[name] = summary
+        if summary["alive_per_iter"] != out["1x1x1"]["alive_per_iter"]:
+            raise AssertionError(f"polished mesh {name}: alive {summary['alive_per_iter']} "
+                                 f"vs {out['1x1x1']['alive_per_iter']}")
+        for k in ("coord", "normal", "ncc", "images"):
+            if not np.array_equal(got[k], base[k]):
+                raise AssertionError(f"polished mesh {name}: cloud {k} differs from the "
+                                     f"unsharded run")
+        if summary["launches"]["grad"] <= 0:
+            raise AssertionError(f"polished mesh {name} launched no backward")
+        log(f"[polish_{name}] cloud and alive counts equal to the unsharded polished run "
+            f"bit for bit")
+    return out
 
 
 def check_paths(paths):
@@ -1238,6 +1506,10 @@ def main() -> int:
     log(f"[kernel] phase {time.time() - t0:.2f} s")
     with tempfile.TemporaryDirectory(prefix="mvskit_smoke_") as work:
         paths = paths_phase(dev, work)
+        t0 = time.time()
+        grad_records = grad_kernel_phase(dev)
+        polish = polish_phase(dev, work, paths["rgb"])
+        log(f"[polish] phase {time.time() - t0:.2f} s")
         t0 = time.time()
         bench_tools_phase(dev, work)
         log(f"[benches] phase {time.time() - t0:.2f} s")
@@ -1324,6 +1596,23 @@ def main() -> int:
             "bound_by": rgb["bound_by"], "library_ms": None, "windows": rec["windows"],
             "group": rec["group"], "luma_ms": luma["ms"], "luma_plain_ms": luma["plain_ms"],
             "luma_bound_ms": luma["bound_ms"],
+        })
+    # the backward kernel: launches on the polished RGB path (luma: the
+    # short luma run), and per mesh of phase 14's short runs
+    for mode, key, run in (("rgb", "grad", "rgb"), ("luma", "luma_grad", "luma")):
+        r = grad_records[mode]
+        kernels.append({
+            "name": f"sample_windows_{'luma_' if mode == 'luma' else ''}grad", "route": "cuda",
+            "source": GRAD_SOURCE, "replaces": REPLACES_GRAD,
+            "launches": polish[run]["launches"][key], "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"], "windows": r["windows"],
+            "bound_share": r["bound_share"], "max_rel_err_f64": r["max_rel_err_f64"],
+            "plain_f32_max_rel_err_f64": r["plain_f32_max_rel_err_f64"],
+            "library_max_rel_err": r["library_max_rel_err"],
+            "edge_lattices": r["edge_lattices"],
+            "mesh_launches": {name: polish[name]["launches"][key]
+                              for name in ("1x1x1", "1x2x1", "2x1x1")} if mode == "rgb" else None,
         })
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -158,15 +158,19 @@ class Scene:
     """All per-scene device state.
 
     planes        [n, I, total, 3] f32 — flattened pyramids
-    planes_packed [n, I, total] int32 — r | g << 8 | b << 16
-    planes_luma_quad [n, I, total] int32 — y00 | y10 << 8 | y01 << 16
-                  | y11 << 24, the luminances of each pixel's 2x2
-                  bilinear support (x+1 / y+1 clamped at level edges)
     masks         [n, total] f32 in {0, 255}, or None
     cams          CameraSet
     lvl_offsets / lvl_widths / lvl_heights [L] int32 device copies of
     the static `offsets` / `widths` / `heights` tuples
+    planes_packed [n, I, total] int32 — r | g << 8 | b << 16
+    planes_luma_quad [n, I, total] int32 — y00 | y10 << 8 | y01 << 16
+                  | y11 << 24, the luminances of each pixel's 2x2
+                  bilinear support (x+1 / y+1 clamped at level edges)
     covis         optional [n, n] bool covisibility (vis.dat)
+
+    The fields that the JAX package's Scene also has come in its order
+    (it has the Pallas level planes besides, which the port does not
+    read); the port's own fields follow, keyword-only.
 
     View sharding (``parallel/shard.enable_view_sharding``, JAX
     ``image/scene.py:173-174``): ``view_mesh`` / ``view_axis`` name the
@@ -185,23 +189,24 @@ class Scene:
     """
 
     planes: torch.Tensor
-    planes_packed: torch.Tensor
-    planes_luma_quad: torch.Tensor
     masks: Optional[torch.Tensor]
     cams: CameraSet
     lvl_offsets: torch.Tensor
     lvl_widths: torch.Tensor
     lvl_heights: torch.Tensor
-    widths: Tuple[int, ...]
-    heights: Tuple[int, ...]
-    offsets: Tuple[int, ...]
-    max_level: int
+    planes_packed: torch.Tensor
+    planes_luma_quad: torch.Tensor
     covis: Optional[torch.Tensor] = None
+    widths: Tuple[int, ...] = ()
+    heights: Tuple[int, ...] = ()
+    offsets: Tuple[int, ...] = ()
+    max_level: int = 0
     view_mesh: Optional[object] = None
     view_axis: str = "view"
-    view_shards: Tuple["ViewShard", ...] = ()
-    view_group: Optional[object] = None
-    use_kernel: bool = True
+    # the port's own fields, keyword-only
+    view_shards: Tuple["ViewShard", ...] = dataclasses.field(default=(), kw_only=True)
+    view_group: Optional[object] = dataclasses.field(default=None, kw_only=True)
+    use_kernel: bool = dataclasses.field(default=True, kw_only=True)
 
     @property
     def device(self) -> torch.device:

@@ -2,11 +2,13 @@
 
 ``load_library()`` compiles every ``csrc/*.cu`` of the package with
 ``nvcc`` into one shared library with a plain C interface, loads it with
-ctypes and caches it for the process. The library lands in
-``build/mvskit_tpu_torch/<hash>/`` at the root of the checkout, keyed by
-a hash of the sources and flags, so an unchanged tree builds once. It
-uses nothing but the sources in the repository; a failed build raises
-with nvcc's stderr.
+ctypes and caches it for the process. Each source compiles to an object
+in its own nvcc process, all started together, and one nvcc links them.
+The library lands in ``build/mvskit_tpu_torch/<hash>/`` at the root of
+the checkout, keyed by a hash of the sources (``*.cu`` and the shared
+``*.cuh``) and flags, so an unchanged tree builds once. It uses nothing
+but the sources in the repository; a failed build raises with nvcc's
+stderr.
 
 nvcc runs with ``-Xptxas -v``: ptxas reports each kernel instance's
 registers, shared memory, stack and spills, and a successful build keeps
@@ -30,9 +32,10 @@ from typing import Dict, Optional
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR.parent / "build" / "mvskit_tpu_torch"
+GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
+# per source (-c); the objects link with GENCODE and -shared
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
@@ -71,22 +74,36 @@ def report_path() -> Path:
     return library_path().with_name("ptxas.txt")
 
 
-def build() -> Path:
-    """Compile csrc/*.cu into the hashed library path (no-op when it
-    exists). Returns the path."""
-    out = library_path()
+def _run_all(cmds):
+    """Run the commands side by side; raise with the first failure's
+    stderr. Returns their stdout + stderr, in order."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for cmd, p, (_, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{err}")
+    return [so + se for so, se in outs]
+
+
+def build(out: Optional[Path] = None) -> Path:
+    """Compile csrc/*.cu into `out` (default: the hashed library path;
+    a no-op when it exists): one nvcc per source, all at once, then one
+    link. Returns the path."""
+    out = library_path() if out is None else Path(out)
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cu]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stderr}"
-        )
-    report_path().write_text(res.stdout + res.stderr)
+    nvcc, tag = find_nvcc(), os.getpid()
+    cu = [p for p in _sources() if p.suffix == ".cu"]
+    objs = [out.with_name(f"{p.stem}.{tag}.o") for p in cu]
+    reports = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)]
+                        for p, o in zip(cu, objs)])
+    tmp = out.with_suffix(f".{tag}.tmp")
+    _run_all([[nvcc, *GENCODE, "-shared", "-o", str(tmp), *map(str, objs)]])
+    for o in objs:
+        o.unlink()
+    out.with_name("ptxas.txt").write_text("".join(reports))
     os.replace(tmp, out)
     return out
 
@@ -166,5 +183,11 @@ def load_library() -> ctypes.CDLL:
             # (form, B, wsize, group, int plan[10])
             lib.mvs_sample_windows_plan.argtypes = [i32] * 4 + [ints]
             lib.mvs_sample_windows_plan.restype = i32
+            # the backward: planes, total, level tables, n_levels, ni,
+            # illum, idx, lvl, tl, dx, dy, grad_out, grads, B, wsize, stream
+            for chans in ("", "luma_"):
+                fn = getattr(lib, f"mvs_sample_windows_{chans}grad")
+                fn.argtypes = common[:13] + [ptr, ptr, i32, i32, ptr]
+                fn.restype = i32
             _lib = lib
         return _lib

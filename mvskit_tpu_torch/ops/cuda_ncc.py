@@ -17,12 +17,21 @@ same arithmetic on the gather path. A CUDA scene whose ``use_kernel``
 is False (``cfg.use_pallas = False``) runs the plain version too. ``ablate`` names one of the
 measurement switches of the JAX kernel (``ABLATIONS``), each of which
 drops one stage of the work and has a defined output that its plain
-version repeats. ``LAUNCHES`` counts kernel launches per form, and
-ablated launches per switch; ``WINDOWS`` counts those launches per
+version repeats. ``LAUNCHES`` counts kernel launches per form,
+ablated launches per switch and the backward kernel's launches (keys
+``grad`` / ``luma_grad``); ``WINDOWS`` counts those launches per
 batch size. ``grouped_plan`` and ``ungrouped_plan`` report how the
 persistent window kernel launches a batch on the current card (tile,
 grid, threads, shared memory, output stages, store path), and
 ``fused_plan`` how the fused form (K4) does.
+
+The gradient polish of the refinement (``pipeline/refine.py``) needs
+the samples' derivative with respect to the lattice. The JAX package
+takes it by XLA's autodiff of its gather path (its Pallas kernel has no
+VJP); here ``SampleWindowsFn`` pairs the forward launch with a backward
+kernel written by hand (``csrc/sample_windows_grad.cu``, reached by
+``sample_windows_grad``), whose plain version is autograd through the
+gather path (``sample_windows_grad_plain``).
 """
 
 from __future__ import annotations
@@ -42,7 +51,8 @@ ABLATIONS = ("", "nodma", "nocompute", "norot", "nowx", "nomm")
 
 LAUNCHES = {"ungrouped": 0, "grouped": 0, "luma_ungrouped": 0,
             "luma_grouped": 0, "fused": 0, "luma_fused": 0,
-            **{f"ablate_{a}": 0 for a in ABLATIONS[1:]}}
+            **{f"ablate_{a}": 0 for a in ABLATIONS[1:]},
+            "grad": 0, "luma_grad": 0}
 
 # the TPU kernel's grouped form needs group | 128 (W_BLK); the same
 # rule picks the launch form here (pallas_ncc.py:609-610)
@@ -306,6 +316,143 @@ def fused_plan(B: int, wsize: int, group: int, luma: bool = False) -> dict:
     return _plan("luma_fused" if luma else "fused", B, wsize, group)
 
 
+def sample_grad_terms(scene: Scene, idx, lvl, tl, dx, dy, wsize: int, grad_out,
+                      illum: int = 0, luma: bool = False, dtype=torch.float32):
+    """Each sample's term of the backward: the cotangent times the
+    sample's derivative in x and in y (s = j * wsize + i), summed over
+    the channels, by autograd through the gather path
+    (``sampling.sample_color_ch_packed`` / ``sample_luma_quad``, whose
+    fractions follow the JAX package's clip rule). The lattice is
+    computed in float32, as the kernels compute it, and then taken in
+    `dtype`: float64 keeps every tap origin, fraction and tie of the
+    float32 evaluation and only rounds the arithmetic less. Returns
+    (gx, gy), each [B, S] of `dtype`."""
+    fn = sampling.sample_luma_quad if luma else sampling.sample_color_ch_packed
+    B, S = idx.shape[0], wsize * wsize
+    with torch.enable_grad():
+        gx, gy = (c.detach().to(dtype).requires_grad_() for c in lattice(tl, dx, dy, wsize))
+        ii, ll = idx.unsqueeze(1).expand(B, S), lvl.unsqueeze(1).expand(B, S)
+        out = fn(scene, ii, gx, gy, ll, illum)  # [C, B, S]
+        cot = grad_out.to(dtype).reshape(B, out.shape[0], S).permute(1, 0, 2)
+        return torch.autograd.grad(out, (gx, gy), cot)
+
+
+def _lattice_weights(wsize: int, device, dtype):
+    """Per sample the factor of each output: 1 (tl), i (dx), j (dy)."""
+    k = torch.arange(wsize, dtype=dtype, device=device)
+    return torch.ones(wsize * wsize, dtype=dtype, device=device), k.repeat(wsize), \
+        k.repeat_interleave(wsize)
+
+
+def sample_windows_grad_plain(scene: Scene, idx, lvl, tl, dx, dy, wsize: int,
+                              grad_out, illum: int = 0, luma: bool = False,
+                              dtype=torch.float32):
+    """Plain PyTorch version of the backward kernel: the vector-Jacobian
+    product of ``sample_windows_plain`` (``_luma_plain`` with `luma`)
+    with `grad_out` [B, C * S] with respect to tl, dx and dy, which is
+    autograd through the plain version: the terms of
+    ``sample_grad_terms`` summed over the samples (times i for dx, j for
+    dy), as the lattice's backward sums them. In float32 (the default)
+    it is the CPU path's gradient, and it rounds as JAX's autodiff of
+    the gather path does: each tap's product with the cotangent is
+    formed and the products subtracted, so its error grows with the
+    taps' size. With dtype=torch.float64 the same function rounds less
+    (chip_smoke.py holds the kernel, which subtracts the taps first, to
+    it). Returns (grad_tl, grad_dx, grad_dy), each [B, 2] of `dtype`."""
+    gx, gy = sample_grad_terms(scene, idx, lvl, tl, dx, dy, wsize, grad_out, illum, luma,
+                               dtype)
+    return tuple(torch.stack([(gx * w).sum(1), (gy * w).sum(1)], 1)
+                 for w in _lattice_weights(wsize, gx.device, gx.dtype))
+
+
+def grad_scale(terms, wsize: int):
+    """The size of each backward output's sum, max(1, sum over s of
+    |term|) with the terms of ``sample_grad_terms`` (times i for dx, j
+    for dy): [3, B, 2], the scale of the kernel's float32 sums, taken in
+    another order than the plain version's."""
+    gx, gy = terms
+    return torch.stack([
+        torch.stack([(gx * w).abs().sum(1), (gy * w).abs().sum(1)], 1)
+        for w in _lattice_weights(wsize, gx.device, gx.dtype)
+    ]).clamp(min=1.0)
+
+
+def _check_grad_out(grad_out, B: int, wsize: int, luma: bool, dev) -> None:
+    shape = (B, (1 if luma else 3) * wsize * wsize)
+    if grad_out.device != dev or grad_out.dtype != torch.float32:
+        raise TypeError(f"grad_out must be float32 on {dev}, got {grad_out.dtype} on "
+                        f"{grad_out.device}")
+    if tuple(grad_out.shape) != shape or not grad_out.is_contiguous():
+        raise ValueError(f"grad_out must be a contiguous {shape}, got "
+                         f"{tuple(grad_out.shape)}")
+
+
+def _launch_grad(scene: Scene, idx, lvl, tl, dx, dy, wsize: int, illum: int,
+                 luma: bool, grad_out):
+    """The backward kernel (csrc/sample_windows_grad.cu) on the card:
+    (grad_tl, grad_dx, grad_dy), each [B, 2] f32."""
+    from . import _build
+
+    B = idx.shape[0]
+    _check_grad_out(grad_out, B, wsize, luma, tl.device)
+    lib = _build.load_library()
+    planes = _planes(scene, luma)
+    n, ni, total = planes.shape
+    grads = torch.empty((3, B, 2), dtype=torch.float32, device=tl.device)
+    key = "luma_grad" if luma else "grad"
+    fn = lib.mvs_sample_windows_luma_grad if luma else lib.mvs_sample_windows_grad
+    err = fn(
+        ctypes.c_void_p(planes.data_ptr()), total,
+        *_level_arrays(scene.offsets, scene.widths, scene.heights), ni, illum,
+        ctypes.c_void_p(idx.data_ptr()), ctypes.c_void_p(lvl.data_ptr()),
+        ctypes.c_void_p(tl.data_ptr()), ctypes.c_void_p(dx.data_ptr()),
+        ctypes.c_void_p(dy.data_ptr()), ctypes.c_void_p(grad_out.data_ptr()),
+        ctypes.c_void_p(grads.data_ptr()), B, wsize,
+        ctypes.c_void_p(torch.cuda.current_stream(tl.device).cuda_stream),
+    )
+    if err != 0:
+        raise RuntimeError(f"sample_windows {key} launch failed: CUDA error {err}")
+    LAUNCHES[key] += 1
+    WINDOWS[key][B] += 1
+    return grads[0], grads[1], grads[2]
+
+
+def sample_windows_grad(scene: Scene, idx, lvl, tl, dx, dy, wsize: int, grad_out,
+                        illum: int = 0, luma: bool = False):
+    """The vector-Jacobian product of ``sample_windows`` with `grad_out`
+    [B, C * S] with respect to the lattice: (grad_tl, grad_dx, grad_dy),
+    each [B, 2] f32. A CUDA tensor of a ``use_kernel`` scene launches the
+    backward kernel, a CPU tensor runs the plain version
+    (``sample_windows_grad_plain``)."""
+    _check(scene, idx, lvl, tl, dx, dy, wsize, illum, luma, "")
+    if tl.device.type == "cuda" and scene.use_kernel:
+        return _launch_grad(scene, idx, lvl, tl, dx, dy, wsize, illum, luma, grad_out)
+    if tl.device.type in ("cpu", "cuda"):
+        return sample_windows_grad_plain(scene, idx, lvl, tl, dx, dy, wsize, grad_out,
+                                         illum, luma)
+    raise ValueError(f"sample_windows_grad: unsupported device {tl.device}")
+
+
+class SampleWindowsFn(torch.autograd.Function):
+    """The window sampler's kernel with a gradient: the forward is the
+    launch of ``sample_windows`` (any form, unablated), the backward the
+    backward kernel (``_launch_grad``) with respect to tl, dx and dy.
+    idx, lvl and the planes carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, scene, idx, lvl, tl, dx, dy, wsize, illum, group, luma, fused):
+        ctx.scene, ctx.wsize, ctx.illum, ctx.luma = scene, wsize, illum, luma
+        ctx.save_for_backward(idx, lvl, tl, dx, dy)
+        return _launch(scene, idx, lvl, tl, dx, dy, wsize, illum, group, luma, fused, "")
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        idx, lvl, tl, dx, dy = ctx.saved_tensors
+        g_tl, g_dx, g_dy = _launch_grad(ctx.scene, idx, lvl, tl, dx, dy, ctx.wsize,
+                                        ctx.illum, ctx.luma, grad_out.contiguous())
+        return None, None, None, g_tl, g_dx, g_dy, None, None, None, None, None
+
+
 def sample_windows(scene: Scene, idx, lvl, tl, dx, dy, wsize: int,
                    illum: int = 0, group: int = 1, luma: bool = False,
                    fused: bool = False, ablate: str = ""):
@@ -318,11 +465,22 @@ def sample_windows(scene: Scene, idx, lvl, tl, dx, dy, wsize: int,
     serves together; `fused` serves such a group with the fused form
     (the JAX kernel's fused=True, the same output). `ablate` is one of
     ``ABLATIONS``. Returns (out [B, 3 * S] f32, or [B, S] with `luma`,
-    fit [B] bool, all true)."""
+    fit [B] bool, all true).
+
+    Where autograd is on and tl, dx or dy requires grad, the launch goes
+    through ``SampleWindowsFn``, whose backward is the backward kernel;
+    on the CPU (and on a ``use_kernel=False`` scene) autograd runs
+    through the plain version."""
     _check(scene, idx, lvl, tl, dx, dy, wsize, illum, luma, ablate)
     if tl.device.type == "cuda" and scene.use_kernel:
-        out = _launch(scene, idx, lvl, tl, dx, dy, wsize, illum, group, luma,
-                      fused, ablate)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (tl, dx, dy)):
+            if ablate:
+                raise ValueError(f"ablate {ablate!r} has no backward")
+            out = SampleWindowsFn.apply(scene, idx, lvl, tl, dx, dy, wsize, illum,
+                                        group, luma, fused)
+        else:
+            out = _launch(scene, idx, lvl, tl, dx, dy, wsize, illum, group, luma,
+                          fused, ablate)
     elif tl.device.type in ("cpu", "cuda"):
         plain = sample_windows_luma_plain if luma else sample_windows_plain
         out = plain(scene, idx, lvl, tl, dx, dy, wsize, illum, ablate)

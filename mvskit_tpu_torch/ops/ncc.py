@@ -318,9 +318,19 @@ def _sample_windows_view_sharded(
     In a multi-process scene (``view_group``) this process holds only
     its own shards: the home output is zero outside their windows and
     one ``all_reduce`` sum over the group completes it
-    (``parallel/multihost.all_reduce_sum``)."""
+    (``parallel/multihost.all_reduce_sum``). The sum stays outside
+    autograd, so a rank's graph reaches only its own windows; where the
+    lattice requires grad, ``multihost.sum_grads`` sums its gradient
+    over the group in the backward, so every rank takes the whole
+    gradient."""
     T, B = idx.shape
     home = tl.device
+    multi = scene.view_group is not None
+    if multi:
+        from ..parallel import multihost
+
+        if any(t.requires_grad for t in (tl, dx2, dy2)):
+            tl, dx2, dy2 = multihost.sum_grads(scene.view_group, tl, dx2, dy2)
     k = scene.view_mesh.shape[scene.view_axis]
     n_local = scene.n_images // k
     if n_local * k != scene.n_images:
@@ -342,7 +352,6 @@ def _sample_windows_view_sharded(
     C = 1 if luma else 3
     S = wsize * wsize
     shape = (flat.shape[0], C * S)
-    multi = scene.view_group is not None
     out = (torch.zeros if multi else torch.empty)(shape, dtype=torch.float32, device=home)
     starts = [0]
     for c in counts:
@@ -364,9 +373,7 @@ def _sample_windows_view_sharded(
         SHARD_CALLS[key] += 1
         SHARD_WINDOWS[key] += n
     if multi:
-        from ..parallel import multihost
-
-        multihost.all_reduce_sum(out, scene.view_group)
+        multihost.all_reduce_sum(out.detach(), scene.view_group)
     fit = torch.ones((T, B), dtype=torch.bool, device=home)
     return out.reshape(T, B, C * S), fit, C
 

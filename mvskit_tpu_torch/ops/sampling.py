@@ -31,14 +31,50 @@ def _trunc_i32(x):
     return x.clamp(_I32_LO, _I32_HI).to(torch.int32)
 
 
+def clip01_slope(v):
+    """The derivative of the JAX package's ``jnp.clip(v, 0, 1)`` (a max
+    then a min, each splitting a tie evenly): 1 inside (0, 1), 0.5 on
+    either bound, 0 outside and at NaN."""
+    inside = ((v > 0.0) & (v < 1.0)).to(v.dtype)
+    tie = ((v == 0.0) | (v == 1.0)).to(v.dtype)
+    return inside + 0.5 * tie
+
+
+class _Clip01(torch.autograd.Function):
+    """clamp(v, 0, 1) whose backward is the cotangent times
+    ``clip01_slope(v)``, as JAX's (torch.clamp's is 1 on the bounds, and
+    a select that turns a NaN cotangent into 0 outside them)."""
+
+    @staticmethod
+    def forward(ctx, v):
+        ctx.save_for_backward(v)
+        return torch.clamp(v, 0.0, 1.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        (v,) = ctx.saved_tensors
+        return g * clip01_slope(v)
+
+
+def clip01(v):
+    """torch.clamp(v, 0, 1) (the same bits, NaN kept), differentiated by
+    the JAX package's rule (``clip01_slope``)."""
+    if torch.is_grad_enabled() and v.requires_grad:
+        return _Clip01.apply(v)
+    return torch.clamp(v, 0.0, 1.0)
+
+
 def _bilinear_frac(x, y, w, h):
     """The gather path's tap origin and fractions (sampling.py:87-92 of
     the JAX package): lx = clamp(trunc(x), 0, w-2), dx1 = clamp(x - lx,
-    0, 1), dx0 = 1 - dx1, likewise for y."""
+    0, 1), dx0 = 1 - dx1, likewise for y. The fractions' derivative
+    follows jnp.clip's (``clip01``), so the gradient of a sample equals
+    JAX's autodiff of its gather path, a lattice on an integer or on
+    w - 1 included."""
     lx = torch.minimum(torch.clamp(_trunc_i32(x), min=0), w - 2)
     ly = torch.minimum(torch.clamp(_trunc_i32(y), min=0), h - 2)
-    dx1 = torch.clamp(x - lx.to(x.dtype), 0.0, 1.0)
-    dy1 = torch.clamp(y - ly.to(y.dtype), 0.0, 1.0)
+    dx1 = clip01(x - lx.to(x.dtype))
+    dy1 = clip01(y - ly.to(y.dtype))
     return lx, ly, 1.0 - dx1, dx1, 1.0 - dy1, dy1
 
 

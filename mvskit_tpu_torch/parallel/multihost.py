@@ -20,6 +20,9 @@ Entry points:
     ``shard.enable_view_sharding``.
   * shard_table_global(table, mesh) — this process's row blocks.
   * to_host_replicated(x) — a replicated result as numpy.
+  * sum_grads(group, *xs) — `xs` unchanged, their gradients summed over
+    the group in the backward (a replicated input whose uses are split
+    over the ranks: the view-sharded sampler's lattice).
 
 Two ranks may share one card (NCCL refuses that); then gloo carries
 their collectives, and ``all_reduce_sum`` stages a CUDA tensor through
@@ -119,3 +122,30 @@ def all_reduce_sum(t: torch.Tensor, group=None) -> None:
         t.copy_(host)
     else:
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+
+
+class _SumGrads(torch.autograd.Function):
+    """Identity forward; the backward sums each cotangent over the
+    group's ranks (one all_reduce for all of them)."""
+
+    @staticmethod
+    def forward(ctx, group, *xs):
+        ctx.group = group
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        all_reduce_sum(flat, ctx.group)
+        parts = flat.split([g.numel() for g in grads])
+        return (None, *(p.view_as(g) for p, g in zip(parts, grads)))
+
+
+def sum_grads(group, *xs):
+    """`xs` as they are, with their gradients summed over the group in
+    the backward. Every rank holds the same `xs` and computes the same
+    loss, but each rank's graph reaches only its own share of their uses
+    (the windows of its views): the gradient of a replicated input is
+    the sum of the ranks' shares (the transpose of a replication, as
+    JAX's shard_map takes it). Returns a tuple of views of `xs`."""
+    return _SumGrads.apply(group, *xs)

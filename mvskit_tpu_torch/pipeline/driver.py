@@ -37,24 +37,24 @@ from . import seed as seedmod
 
 
 def check_supported(cfg: MVSConfig) -> None:
-    """Raise NotImplementedError for options the port does not cover yet
-    (each names the ROADMAP item that ports it), and ValueError for a
-    strategy other than pm_image and pmvs or a negative refine_rgb_tail
-    with luma_refine (the JAX package's scan breaks on it)."""
+    """Raise ValueError for a strategy other than pm_image and pmvs, for
+    a negative refine_rgb_tail with luma_refine (the JAX package's scan
+    breaks on it), and for the gradient polish after a luma search that
+    ends in RGB rounds (JAX refine.py:299 would accept a luma cost
+    against an RGB incumbent; pipeline/refine.refine_batch)."""
     if cfg.strategy not in ("pm_image", "pmvs"):
         raise ValueError(f"unknown strategy {cfg.strategy!r}")
-    unsupported = []
-    if cfg.refine_grad_steps > 0:
-        unsupported.append("refine_grad_steps > 0 (retired; GRADPOLISH.json)")
-    if unsupported:
-        raise NotImplementedError(
-            "not ported to mvskit_tpu_torch yet: " + "; ".join(unsupported)
-        )
     if cfg.luma_refine and cfg.refine_rgb_tail < 0:
         raise ValueError(
             f"refine_rgb_tail must be >= 0 with luma_refine, got "
             f"{cfg.refine_rgb_tail}"
         )
+    if (cfg.refine_grad_steps > 0 and cfg.luma_refine
+            and min(cfg.refine_rgb_tail, cfg.refine_rounds) > 0):
+        raise ValueError(
+            "refine_grad_steps > 0 with luma_refine and refine_rgb_tail > 0 would accept "
+            "a luma cost against the RGB search's incumbent (JAX refine.py:299); set "
+            "refine_rgb_tail 0")
     if min(cfg.mesh_dp, cfg.mesh_view, cfg.mesh_tile) < 1:
         raise ValueError(f"mesh axes must be >= 1, got ({cfg.mesh_dp}, "
                          f"{cfg.mesh_view}, {cfg.mesh_tile})")
@@ -179,6 +179,8 @@ class PMMVS:
             chunk=cfg.gauntlet_chunk,
             neighbor_threshold1=cfg.neighbor_threshold1,
             depth2_check=self.depth >= 2,
+            grad_steps=cfg.refine_grad_steps,
+            grad_lr=cfg.refine_grad_lr,
             neighbor_capacity=cfg.neighbor_capacity,
             neighbor_cand_cap=cfg.neighbor_cand_cap,
             group_dma=cfg.refine_group_dma,

@@ -57,11 +57,15 @@ class PropagateParams(NamedTuple):
     chunk: int
     neighbor_threshold1: float = 1.0
     depth2_check: bool = False
+    # the refinement's gradient polish (refine.refine_batch grad_steps /
+    # grad_lr); 0 steps is off
+    grad_steps: int = 0
+    grad_lr: float = 0.5
+    luma_refine: bool = False
     neighbor_capacity: int = 48
     neighbor_cand_cap: int = 1024
     group_dma: bool = True
     donor_policy: str = "cell_first"
-    luma_refine: bool = False
     rgb_tail: int = 0
     # multi-illumination scoring: when > 1, the gauntlet's NCC scores and
     # the refinement objective average over the illuminations; view
@@ -288,6 +292,7 @@ def run_gauntlet(scene, grid, table, coord, normal, images, ok_in, deltas,
         shrink=p.refine_shrink,
         init_depth_radius=p.refine_depth_radius,
         init_angle_radius=p.refine_angle_radius,
+        grad_steps=p.grad_steps, grad_lr=p.grad_lr,
         group_dma=p.group_dma, luma=p.luma_refine, rgb_tail=p.rgb_tail,
         n_illums=p.n_illums,
     )

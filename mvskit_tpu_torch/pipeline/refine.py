@@ -11,7 +11,10 @@ form.
 
 With ``luma`` the first rounds search on luminance (the opt-in
 luma_refine) and the last ``rgb_tail`` rounds in RGB; with ``n_illums``
-> 1 every cost averages over the illuminations.
+> 1 every cost averages over the illuminations. With ``grad_steps`` > 0
+a gradient polish follows the search (JAX refine.py:277-300): the
+objective is differentiable in the three encoded parameters through the
+bilinear warp, on a card through the window sampler's backward kernel.
 
 The search noise is injected: ``deltas`` [rounds, B, n_cands, 3] holds
 uniform draws in [-1, 1), or, when absent, they are drawn from
@@ -28,6 +31,7 @@ import torch
 from ..core.patches import count_valid
 from ..image.scene import Scene
 from ..ops import ncc as nccops
+from ..utils import profiling
 
 ANGLE_BOUND = 23.99999  # reference optim.cpp:496-497
 
@@ -116,6 +120,8 @@ def refine_batch(
     shrink: float,
     init_depth_radius: float,
     init_angle_radius: float,
+    grad_steps: int = 0,
+    grad_lr: float = 0.5,
     group_dma: bool = True,
     luma: bool = False,
     rgb_tail: int = 0,
@@ -134,11 +140,29 @@ def refine_batch(
     score is always RGB. rgb_tail < 0 with luma raises ValueError.
 
     deltas: [rounds, B, n_cands, 3] uniform noise in [-1, 1), scaled by
-    each round's radius; drawn from `generator` when None."""
+    each round's radius; drawn from `generator` when None.
+
+    grad_steps: after the search, that many safeguarded steps along the
+    normalised gradient of the summed cost (JAX refine.py:277-300): g =
+    grad of sum(cost(best_p)), cand = best_p - grad_lr * g / |g| (angles
+    clipped to +-ANGLE_BOUND), accepted per row where its cost beats the
+    incumbent's. A row whose gradient is not finite keeps its pose (its
+    candidate's comparison is false). The cost is taken at group 1, in
+    luma with `luma`; on a card the gradient of the window sampler is
+    its backward kernel (ops/cuda_ncc.SampleWindowsFn). With luma and
+    min(rgb_tail, rounds) > 0 the search ends in RGB while the polish
+    scores luma, so a step would compare a luma cost with an RGB
+    incumbent (JAX refine.py:299): that raises ValueError."""
     if luma and rgb_tail < 0:
         raise ValueError(f"rgb_tail must be >= 0 with luma, got {rgb_tail}")
+    if grad_steps > 0 and luma and min(rgb_tail, rounds) > 0:
+        raise ValueError(
+            "grad_steps > 0 with luma and rgb_tail > 0 would accept a luma cost against "
+            "the RGB search's incumbent (JAX refine.py:299); set rgb_tail=0")
     B = coord.shape[0]
     dev = coord.device
+    stats = profiling.POLISH  # None unless a caller records the polish
+    mark_start = stats.mark(dev) if stats else None
     ref = images[:, 0].clamp(min=0).long()
     center = coord
     ray = center - scene.cams.center[ref]
@@ -205,11 +229,32 @@ def refine_batch(
         best_p = torch.where(improved.unsqueeze(1), pbest, best_p)
         best_c = torch.where(improved, cbest, best_c)
         radius = radius * shrink
+
+    def cost_of(p):
+        c = decode_coord(center, ray, safe_dscale, p[:, 0])
+        n = decode_normal(scene, ref, p[:, 1] * ascale, p[:, 2] * ascale)
+        return _eval_cost(scene, views, c, n, minimum, level, wsize,
+                          angle_threshold1, luma=luma, n_illums=n_illums)
+
     if rounds <= 0:  # degenerate budget: score the start pose only
-        c = decode_coord(center, ray, safe_dscale, p0[:, 0])
-        n = decode_normal(scene, ref, p0[:, 1] * ascale, p0[:, 2] * ascale)
-        best_c = _eval_cost(scene, views, c, n, minimum, level, wsize,
-                            angle_threshold1, luma=luma, n_illums=n_illums)
+        best_c = cost_of(p0)
+
+    # the gradient polish: safeguarded accept-if-better steps
+    mark_polish = stats.mark(dev) if stats else None
+    for k in range(grad_steps):
+        with torch.enable_grad():
+            p = best_p.detach().requires_grad_()
+            (g,) = torch.autograd.grad(cost_of(p).sum(), p)
+        gn = torch.sqrt(torch.clamp((g * g).sum(-1, keepdim=True), min=1e-12))
+        cand = best_p - grad_lr * g / gn
+        cand[:, 1:] = cand[:, 1:].clamp(-ANGLE_BOUND, ANGLE_BOUND)
+        c = cost_of(cand)
+        improved = c < best_c
+        best_p = torch.where(improved.unsqueeze(1), cand, best_p)
+        best_c = torch.where(improved, c, best_c)
+        if stats:
+            stats.step(k, improved)
+    mark_polished = stats.mark(dev) if stats else None
 
     out_coord = decode_coord(center, ray, safe_dscale, best_p[:, 0])
     out_normal = decode_normal(
@@ -227,4 +272,6 @@ def refine_batch(
         scores.append(torch.where(nimg < 2, torch.full_like(s, 2.0), s))
     score = sum(scores) / len(scores)
     out_ncc = 1.0 - nccops.unrobustincc(score)
+    if stats:
+        stats.call(mark_start, mark_polish, mark_polished, stats.mark(dev))
     return RefineResult(out_coord, out_normal, out_ncc, best_c)

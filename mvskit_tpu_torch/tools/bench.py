@@ -110,15 +110,16 @@ def cpu_baseline_msps(cache: str = BASELINE_CACHE, evals: int = 100000) -> float
     return val
 
 
-def prep(scene, coord, normal):
+def prep(scene, coord, normal, tau: int = TAU):
     """The JAX tool's prep: view 0 as the reference, add_images ->
-    sort_images -> set_scales. Returns (images [B, n] int32, dscale [B])."""
+    sort_images -> set_scales (over `tau` views). Returns (images [B, n]
+    int32, dscale [B])."""
     images = torch.full((coord.shape[0], scene.n_images), -1, dtype=torch.int32,
                         device=coord.device)
     images[:, 0] = 0
     images = vw.add_images(scene, coord, normal, images, LEVEL, A1)
     images = vw.sort_images(scene, coord, normal, images, LEVEL)
-    dscale, _ = vw.set_scales(scene, coord, images, LEVEL, TAU, WSIZE)
+    dscale, _ = vw.set_scales(scene, coord, images, LEVEL, tau, WSIZE)
     return images, dscale
 
 
@@ -130,15 +131,17 @@ def plane_inputs(Ps, scene, batch: int, extent: float = 1.2):
 
 
 def search(scene, coord, normal, images, dscale, deltas=None, generator=None, *,
-           rounds: int, cands: int, luma: bool = False, rgb_tail=None, group_dma=None):
+           rounds: int, cands: int, luma: bool = False, rgb_tail=None, group_dma=None,
+           grad_steps: int = 0):
     """``refine_batch`` as the benchmark calls it: the config's shrink,
-    grouping and RGB tail unless given, radii 4 and 8."""
+    grouping and RGB tail unless given, radii 4 and 8; `grad_steps`
+    gradient polish steps (0, the benchmark's, is off)."""
     cfg = MVSConfig()
     return rf.refine_batch(
         scene, coord, normal, images, dscale, deltas, level=LEVEL, wsize=WSIZE,
         tau=TAU, min_image_num=3, angle_threshold1=A1, ascale=ASCALE, rounds=rounds,
         n_cands=cands, shrink=cfg.refine_shrink, init_depth_radius=4.0,
-        init_angle_radius=8.0, luma=luma,
+        init_angle_radius=8.0, grad_steps=grad_steps, luma=luma,
         group_dma=cfg.refine_group_dma if group_dma is None else group_dma,
         rgb_tail=cfg.refine_rgb_tail if rgb_tail is None else rgb_tail,
         generator=generator)

@@ -10,8 +10,12 @@ them with ``compute_patch_ncc`` twice: on the whole scene in this process
 alone, and on the scene view-sharded over the global mesh
 (``parallel/multihost.enable_view_sharding_global``), where it holds only
 its own views' planes and one all_reduce combines the ranks' windows.
-The two must be equal. The rank writes its record to OUT.json and exits
-0 when they are.
+Then it refines the patches from perturbed starts with the gradient
+polish (``refine_batch`` with grad_steps, the search noise from a seeded
+``torch.Generator``) on both scenes: the polish's gradient on the
+sharded scene sums the ranks' shares (``multihost.sum_grads``). Each
+pair must be equal, and the polish must move a patch. The rank writes
+its record to OUT.json and exits 0 when all hold.
 """
 
 from __future__ import annotations
@@ -20,6 +24,12 @@ import argparse
 import json
 import math
 import sys
+
+
+# the polished refinement of the check: a short search, then the polish
+POLISH = dict(rounds=2, n_cands=4, shrink=0.64, init_depth_radius=4.0,
+              init_angle_radius=8.0, grad_lr=0.5)
+POLISH_STEPS = 2
 
 
 def main(argv=None) -> int:
@@ -40,6 +50,9 @@ def main(argv=None) -> int:
     from mvskit_tpu_torch import get_device
     from mvskit_tpu_torch.ops import cuda_ncc, ncc
     from mvskit_tpu_torch.parallel import multihost as mh
+    from mvskit_tpu_torch.pipeline import refine as rf
+    from mvskit_tpu_torch.tools.ab_refine_chip import perturbed_starts, torch_deltas
+    from mvskit_tpu_torch.tools.bench import A1, ASCALE, LEVEL, WSIZE, prep
     from mvskit_tpu_torch.utils.synthetic import plane_points, plane_scene
 
     dev = get_device(args.device)
@@ -60,11 +73,24 @@ def main(argv=None) -> int:
             return ncc.compute_patch_ncc(scn, views, coord, normal, 1, 7, tau,
                                          math.radians(60.0))
 
+        images, dscale = prep(scene, coord, normal, tau)
+        start, start_n = perturbed_starts(scene, coord, normal, images, dscale, 1)
+        deltas = torch_deltas(dev)(POLISH["rounds"], coord.shape[0], POLISH["n_cands"], 7)
+
+        def refine(scn, grad_steps=POLISH_STEPS):
+            res = rf.refine_batch(scn, start, start_n, images, dscale, deltas, level=LEVEL,
+                                  wsize=WSIZE, tau=tau, min_image_num=3,
+                                  angle_threshold1=A1, ascale=ASCALE, grad_steps=grad_steps,
+                                  **POLISH)
+            return [mh.to_host_replicated(x) for x in res]
+
         ref = mh.to_host_replicated(score(scene))
+        ref_polish, searched = refine(scene), refine(scene, 0)
         mesh = mh.global_view_mesh([dev] * args.local_shards)
         gscene = mh.enable_view_sharding_global(scene, mesh)
         cuda_ncc.reset_launches()
         got = mh.to_host_replicated(score(gscene))
+        got_polish = refine(gscene)
         launches = {k: v for k, v in cuda_ncc.LAUNCHES.items() if v}
         rec = {"rank": args.rank, "processes": dist.get_world_size(),
                "backend": dist.get_backend(), "device": str(dev),
@@ -72,11 +98,14 @@ def main(argv=None) -> int:
                "local_plane_views": [s.scene.planes.shape[0] for s in gscene.view_shards],
                "home_plane_views": gscene.planes.shape[0],
                "launches": launches, "equal": bool(np.array_equal(got, ref)),
-               "max_abs_diff": float(np.max(np.abs(got - ref)))}
+               "max_abs_diff": float(np.max(np.abs(got - ref))),
+               "polish_equal": all(np.array_equal(a, b)
+                                   for a, b in zip(got_polish, ref_polish)),
+               "polish_moved": int((ref_polish[0] != searched[0]).any(1).sum())}
         with open(args.out, "w") as f:
             json.dump(rec, f)
         print(json.dumps(rec))
-        return 0 if rec["equal"] else 1
+        return 0 if rec["equal"] and rec["polish_equal"] and rec["polish_moved"] else 1
     finally:
         dist.destroy_process_group()
 

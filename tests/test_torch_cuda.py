@@ -22,7 +22,16 @@ through the kernels equals it through the plain versions
 (``use_pallas=False``) bit for bit.
 The pipeline on the card against the same pipeline on the CPU, fed the
 same random numbers: alive counts within 3 % (reductions sum in another
-order on the card, which can flip a near-tie accept/reject)."""
+order on the card, which can flip a near-tie accept/reject).
+The sampler's backward kernel (csrc/sample_windows_grad.cu) against its
+plain version (autograd through the gather path) evaluated in float64
+from the same float32 lattice: within 1e-5 of each output's sum of term
+magnitudes (``cuda_ncc.grad_scale``; the float32 plain version, which
+forms each tap's product with the cotangent before subtracting, strays
+up to a few 1e-5 of it by itself), the same NaN pattern (float32 plain
+version too), and two launches bit for bit; the polished refinement through it tracks the plain path
+within the refinement tolerance (coord 1e-4 on >= 99 % of rows), and
+equals itself on view shards of the card bit for bit."""
 
 import numpy as np
 import pytest
@@ -598,3 +607,121 @@ def test_cli_mesh_needs_distinct_cards(card, tmp_path):
     with pytest.raises(ValueError, match=f"have {have}"):
         cli.main([str(tmp_path), "--device", "cuda", "--mesh", f"1,1,{have + 1}",
                   "--no-snapshots"])
+
+
+def _grad_windows(scene, kind, wsize, luma):
+    from mvskit_tpu_torch.tools.bench_kernel import edge_windows
+
+    if kind == "edge":
+        args = edge_windows(scene, 64 * 32)
+    else:
+        args = _windows(scene, wsize=wsize)
+    B = args[0].shape[0]
+    C = 1 if luma else 3
+    gen = torch.Generator(device=scene.device).manual_seed(wsize)
+    cot = torch.randn((B, C * wsize * wsize), generator=gen, device=scene.device)
+    return args, cot
+
+
+@pytest.mark.parametrize("kind", ["plane", "edge"])
+@pytest.mark.parametrize("wsize", [7, 5])
+@pytest.mark.parametrize("luma", [False, True])
+def test_backward_kernel_matches_plain(card, kind, wsize, luma):
+    from mvskit_tpu_torch.ops import cuda_ncc
+    from mvskit_tpu_torch.utils import synthetic
+
+    _, _, scene = synthetic.plane_scene(n_views=6, width=160, height=120, device=card)
+    args, cot = _grad_windows(scene, kind, wsize, luma)
+    cuda_ncc.reset_launches()
+    got = cuda_ncc.sample_windows_grad(scene, *args, wsize, cot, luma=luma)
+    again = cuda_ncc.sample_windows_grad(scene, *args, wsize, cot, luma=luma)
+    torch.cuda.synchronize()
+    key = "luma_grad" if luma else "grad"
+    assert cuda_ncc.LAUNCHES == dict(_no_launches(), **{key: 2})
+    f64 = torch.float64
+    want = cuda_ncc.sample_windows_grad_plain(scene, *args, wsize, cot, luma=luma, dtype=f64)
+    scale = cuda_ncc.grad_scale(cuda_ncc.sample_grad_terms(scene, *args, wsize, cot,
+                                                           luma=luma, dtype=f64), wsize)
+    plain32 = cuda_ncc.sample_windows_grad_plain(scene, *args, wsize, cot, luma=luma)
+    for g, a, w, sc, p32 in zip(got, again, want, scale, plain32):
+        assert torch.equal(_bits(g), _bits(a))
+        for x in (g, p32):
+            assert torch.equal(torch.isnan(x), torch.isnan(w))
+            assert torch.equal(torch.isfinite(x), torch.isfinite(w))
+        fin = torch.isfinite(w)
+        err = (g.double() - w).abs()[fin] / sc[fin]
+        assert (err <= 1e-5).all(), err.max()
+
+
+def test_backward_kernel_is_the_autograd_of_the_launch(card):
+    """Autograd through sample_windows on the card launches the forward
+    kernel and the backward kernel, and gives the backward's bits."""
+    from mvskit_tpu_torch.ops import cuda_ncc
+    from mvskit_tpu_torch.utils import synthetic
+
+    _, _, scene = synthetic.plane_scene(n_views=6, width=160, height=120, device=card)
+    (idx, lvl, tl, dx, dy), cot = _grad_windows(scene, "plane", WSIZE, False)
+    direct = cuda_ncc.sample_windows_grad(scene, idx, lvl, tl, dx, dy, WSIZE, cot)
+    leaves = [t.clone().requires_grad_() for t in (tl, dx, dy)]
+    cuda_ncc.reset_launches()
+    out, _ = cuda_ncc.sample_windows(scene, idx, lvl, *leaves, WSIZE, group=32)
+    grads = torch.autograd.grad(out, leaves, cot)
+    assert cuda_ncc.LAUNCHES == dict(_no_launches(), grouped=1, grad=1)
+    for g, d in zip(grads, direct):
+        assert torch.equal(_bits(g), _bits(d))
+
+
+def test_polished_refine_kernel_path_tracks_plain_path(card):
+    """refine_batch with grad_steps=4 at B = 512 through the kernels and
+    through the plain versions on the card (use_kernel=False): the
+    backward's sums differ from autograd's by rounding, so the two
+    agree as the refinement parity does (coord 1e-4 on >= 99 % of
+    rows); only the kernel path launches, the backward among it, and
+    the polish never raises a row's cost."""
+    import dataclasses
+
+    from mvskit_tpu_torch.ops import cuda_ncc
+    from mvskit_tpu_torch.tools import bench
+    from mvskit_tpu_torch.tools.bench_kernel import bench_scene
+
+    Ps, scene = bench_scene(card, 6, 160, 120)
+    coord, normal = bench.plane_inputs(Ps, scene, 512, extent=0.7)
+    images, dscale = bench.prep(scene, coord, normal)
+    out, launches = [], []
+    for use_kernel in (True, False):
+        gen = torch.Generator(device=card).manual_seed(0)
+        sc = dataclasses.replace(scene, use_kernel=use_kernel)
+        cuda_ncc.reset_launches()
+        out.append(bench.search(sc, coord, normal, images, dscale, generator=gen, rounds=3,
+                                cands=8, grad_steps=4))
+        torch.cuda.synchronize()
+        launches.append(dict(cuda_ncc.LAUNCHES))
+    assert launches[0]["grad"] == 4 and launches[0]["ungrouped"] >= 8
+    assert sum(launches[1].values()) == 0
+    d = (out[0].coord - out[1].coord).abs().max(1).values
+    assert (d <= 1e-4).float().mean() >= 0.99, d.max()
+    gen = torch.Generator(device=card).manual_seed(0)
+    base = bench.search(scene, coord, normal, images, dscale, generator=gen, rounds=3, cands=8)
+    assert (out[0].cost <= base.cost).all()
+
+
+@pytest.mark.parametrize("k", [2, 3])
+def test_polished_refine_on_view_shards_equals_unsharded(card, k):
+    from mvskit_tpu_torch.ops import cuda_ncc
+    from mvskit_tpu_torch.parallel import shard as sh
+    from mvskit_tpu_torch.tools import bench
+    from mvskit_tpu_torch.tools.bench_kernel import bench_scene
+
+    Ps, scene = bench_scene(card, 6, 160, 120)
+    coord, normal = bench.plane_inputs(Ps, scene, 256, extent=0.7)
+    images, dscale = bench.prep(scene, coord, normal)
+    vs = sh.enable_view_sharding(scene, sh.make_mesh(k, "view", devices=[card] * k))
+    out = []
+    for sc in (scene, vs):
+        gen = torch.Generator(device=card).manual_seed(0)
+        cuda_ncc.reset_launches()
+        out.append(bench.search(sc, coord, normal, images, dscale, generator=gen, rounds=2,
+                                cands=8, grad_steps=2))
+        assert cuda_ncc.LAUNCHES["grad"] > 0
+    for a, b in zip(*out):
+        assert torch.equal(_bits(a), _bits(b))

@@ -3,8 +3,9 @@ CLI's --help run in a subprocess where `import jax` fails (the walk
 reaches parallel/*, the e2e and scaling tools and the refinement bench
 and studies), and neither the port
 nor chip_smoke.py imports any module of mvskit_tpu. Also the explicit
-device helper, the unported options' NotImplementedError and the
-options this port covers (the device mesh among them)."""
+device helper, the options this port covers (the device mesh and the
+gradient polish among them) and the reference fault it refuses (the
+luma polish after RGB tail rounds)."""
 
 import ast
 import os
@@ -37,7 +38,8 @@ def test_import_all_submodules_without_jax():
         "assert sys.modules['jax'] is None\n"
         "need = {'mvskit_tpu_torch.parallel.' + m for m in ('shard', 'tiles', 'multihost')}\n"
         "need |= {'mvskit_tpu_torch.tools.' + m for m in ('e2e_run', 'bench_scaling', 'bench',\n"
-        "         'bench_refine_parts', 'ab_refine_chip', 'ab_luma', 'coverage_sweep')}\n"
+        "         'bench_refine_parts', 'ab_refine_chip', 'ab_luma', 'ab_gradpolish',\n"
+        "         'coverage_sweep')}\n"
         "assert need <= set(names), need - set(names)\n"
         "print(len(names))\n"
     )
@@ -109,18 +111,40 @@ def test_get_device_is_explicit():
         get_device("meta")
 
 
-@pytest.mark.parametrize("field,value", [
-    ("refine_grad_steps", 2),
-])
-def test_unported_options_raise(field, value):
+def test_luma_polish_after_rgb_tail_raises():
+    """A reference fault not copied: JAX's polish scores luma while a
+    luma search with RGB tail rounds ends on an RGB incumbent, and
+    compares the two (JAX refine.py:299). The port refuses it with
+    ValueError in check_supported and in refine_batch; with
+    refine_rgb_tail 0 both run."""
     from mvskit_tpu_torch.config import MVSConfig
+    from mvskit_tpu_torch.pipeline import refine as rf
+    from mvskit_tpu_torch.pipeline import views as vw
     from mvskit_tpu_torch.pipeline.driver import check_supported
+    from mvskit_tpu_torch.utils import synthetic
 
     cfg = MVSConfig(images=list(range(4)))
-    check_supported(cfg)
-    setattr(cfg, field, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP|retired"):
+    cfg.luma_refine, cfg.refine_rgb_tail, cfg.refine_grad_steps = True, 2, 2
+    with pytest.raises(ValueError, match="refine.py:299"):
         check_supported(cfg)
+    cfg.refine_rgb_tail = 0
+    check_supported(cfg)
+
+    Ps, _, scene = synthetic.plane_scene(n_views=4, width=80, height=60, device="cpu")
+    coord, normal = (torch.as_tensor(a, dtype=torch.float32)
+                     for a in synthetic.plane_points(Ps, 8, extent=0.3))
+    images = torch.full((8, 4), -1, dtype=torch.int32)
+    images = vw.add_images(scene, coord, normal, images, 1, 1.0471976)
+    images = vw.sort_images(scene, coord, normal, images, 1, is_fixed=False)
+    dscale, _ = vw.set_scales(scene, coord, images, 1, 4, 7)
+    kw = dict(level=1, wsize=7, tau=4, min_image_num=2, angle_threshold1=1.0471976,
+              ascale=cfg.ascale, rounds=2, n_cands=4, shrink=0.8, init_depth_radius=4.0,
+              init_angle_radius=8.0, luma=True, grad_steps=2)
+    args = (scene, coord, normal, images, dscale, torch.zeros(2, 8, 4, 3))
+    with pytest.raises(ValueError, match="refine.py:299"):
+        rf.refine_batch(*args, rgb_tail=2, **kw)
+    res = rf.refine_batch(*args, rgb_tail=0, **kw)
+    assert res.coord.shape == (8, 4) and torch.isfinite(res.cost).all()
 
 
 @pytest.mark.parametrize("field,value", [
@@ -128,6 +152,7 @@ def test_unported_options_raise(field, value):
     ("nillums", 3),
     ("strategy", "pmvs"),
     ("mesh_view", 2),
+    ("refine_grad_steps", 4),
 ])
 def test_ported_options_accepted(field, value):
     from mvskit_tpu_torch.config import MVSConfig

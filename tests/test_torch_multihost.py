@@ -4,6 +4,9 @@ two view shards on the CPU (4 views in all), score the same patches
 with view-sharded NCC (parallel/multihost.enable_view_sharding_global):
 each holds only its own views' planes, and one all_reduce combines the
 ranks' windows. The result must equal the single-process value exactly.
+So must the gradient-polished refinement of the same patches, whose
+gradient each rank takes only through its own windows and sums over the
+ranks (parallel/multihost.sum_grads); and the polish must move a patch.
 Every process has a timeout and is killed when it expires."""
 
 import json
@@ -54,3 +57,4 @@ def test_two_process_view_sharded_ncc(tmp_path):
         # only this rank's views: one per local shard, none at home
         assert rec["local_plane_views"] == [1, 1] and rec["home_plane_views"] == 0
         assert rec["equal"] and rec["max_abs_diff"] == 0.0
+        assert rec["polish_equal"] and rec["polish_moved"] > 0

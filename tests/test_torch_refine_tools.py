@@ -1,7 +1,8 @@
 """The port's refinement benchmark and studies on the CPU at a small size
 (mvskit_tpu_torch/tools/bench.py, bench_refine_parts.py,
-ab_refine_chip.py, ab_luma.py, coverage_sweep.py), against the JAX
-package on the gather path, and the driver's ``use_pallas`` switch.
+ab_refine_chip.py, ab_luma.py, ab_gradpolish.py, coverage_sweep.py),
+against the JAX package on the gather path, and the driver's
+``use_pallas`` switch.
 
 Small plane: 6 views of 80x60 (plane points of extent 0.4, which all
 views see at that size), B = 64, rounds 3, cands 8; the studies at
@@ -40,7 +41,8 @@ from mvskit_tpu.pipeline import views as jvw
 from mvskit_tpu.utils import synthetic as jsyn
 from mvskit_tpu_torch.config import MVSConfig
 from mvskit_tpu_torch.pipeline.driver import PMMVS
-from mvskit_tpu_torch.tools import ab_luma, ab_refine_chip, bench, bench_refine_parts
+from mvskit_tpu_torch.tools import ab_gradpolish, ab_luma, ab_refine_chip, bench
+from mvskit_tpu_torch.tools import bench_refine_parts
 from mvskit_tpu_torch.tools import coverage_sweep
 from mvskit_tpu_torch.tools.bench_kernel import bench_scene
 from mvskit_tpu_torch.utils import synthetic
@@ -268,6 +270,29 @@ def test_ab_luma_arms():
         **JKW)
     got = res["sphere", "luma_search"]
     assert torch.equal(ungrouped.coord, got.coord) and torch.equal(ungrouped.ncc, got.ncc)
+
+
+def test_ab_gradpolish_arms():
+    """The study's record has GRADPOLISH.json's layout; arm C (arm A's
+    search, the same noise, then 4 polish steps) never ends at a higher
+    cost than arm A and lowers some; arm B searches with half the
+    candidates. (The polish itself is held to JAX in
+    tests/test_torch_polish.py.)"""
+    rec, res, inputs = ab_gradpolish.run(batch=16, device="cpu", draw=jax_draw)
+    with open(os.path.join(REPO, "GRADPOLISH.json")) as f:
+        jrec = json.load(f)
+    assert set(jrec) <= set(rec) and list(rec["scenes"]) == list(jrec["scenes"])
+    for tag, arms in rec["scenes"].items():
+        assert list(arms) == list(jrec["scenes"][tag])
+        for name, arm in arms.items():
+            assert set(arm) == set(jrec["scenes"][tag][name]), (tag, name)
+            assert arm["evals_fwd_equiv"] == jrec["scenes"][tag][name]["evals_fwd_equiv"]
+    for tag in rec["scenes"]:
+        a, c = res[tag, "A_random_12x16"].cost, res[tag, "C_random_12x16_grad4"].cost
+        ok = torch.as_tensor(inputs[tag]["ok"])
+        assert (c <= a).all() and (c[ok] < a[ok]).any(), tag
+        assert not torch.equal(res[tag, "B_random_12x8_grad4"].coord,
+                               res[tag, "A_random_12x16"].coord)
 
 
 def test_coverage_sweep_artifact(tmp_path):

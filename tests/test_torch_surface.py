@@ -24,6 +24,13 @@ parameter is a parameter of the port's. A name may differ only through
 ``DROPPED`` and a whole function may differ only through
 ``EXEMPT_SIGNATURES``, each entry with a one-line reason; an entry that
 no longer matches anything fails.
+
+It also holds record fields. For every top-level ``NamedTuple`` and
+dataclass that both files define, the port's positional fields begin
+with JAX's, in JAX's order, so a record built positionally in JAX's
+order binds the same fields in the port; the port's own fields come
+after them and are keyword-only (``dataclasses.field(kw_only=True)``).
+A JAX field may be missing only through ``DROPPED``.
 """
 
 import ast
@@ -174,13 +181,15 @@ SUBSTITUTIONS = {
         "port replicates per dp device (parallel/shard.py replicas)",
 }
 
-# "relpath:name parameter" -> why the port has no such parameter.
+# "relpath:name parameter" -> why the port has no such parameter (or,
+# for a record, no such field).
 DROPPED = {
-    "pipeline/refine.py:refine_batch grad_steps":
-        "the differentiable polish is retired (GRADPOLISH.json); "
-        "cfg.refine_grad_steps > 0 raises in pipeline/driver.py check_supported",
-    "pipeline/refine.py:refine_batch grad_lr":
-        "the step size of the retired differentiable polish (GRADPOLISH.json)",
+    "image/scene.py:Scene planes_luma_levels":
+        "the Pallas kernel's padded luma level planes; the port's sampler reads the flat "
+        "quad-packed planes (Scene.planes_luma_quad)",
+    "image/scene.py:Scene planes_rgb_levels":
+        "the Pallas kernel's padded RGB level planes; the port's sampler reads the flat "
+        "packed planes (Scene.planes_packed)",
 }
 
 # "relpath:name" -> why its signature is the port's own.
@@ -297,10 +306,93 @@ def test_port_signatures_follow_jax(rel):
         f"entry to SUBSTITUTIONS / DROPPED / EXEMPT_SIGNATURES with a one-line reason")
 
 
+def _is_record(node):
+    """A NamedTuple subclass or a class under a dataclass decorator."""
+    return (any(ast.unparse(b).endswith("NamedTuple") for b in node.bases)
+            or any("dataclass" in ast.unparse(d) for d in node.decorator_list))
+
+
+def _kw_only(call):
+    """Whether a ``dataclass(...)`` or ``field(...)`` call says kw_only=True."""
+    return isinstance(call, ast.Call) and any(
+        k.arg == "kw_only" and isinstance(k.value, ast.Constant) and k.value.value is True
+        for k in call.keywords)
+
+
+def record_fields(src):
+    """{class: [(field, keyword_only)]} of the top-level public records:
+    annotated class attributes in order (ClassVar excluded; a field is
+    keyword-only under ``dataclass(kw_only=True)``, after a ``KW_ONLY``
+    marker or through ``field(kw_only=True)``)."""
+    out = {}
+    for node in ast.parse(src).body:
+        if not (isinstance(node, ast.ClassDef) and not node.name.startswith("_")
+                and _is_record(node)):
+            continue
+        kw = any(_kw_only(d) for d in node.decorator_list)
+        fields = []
+        for st in node.body:
+            if not (isinstance(st, ast.AnnAssign) and isinstance(st.target, ast.Name)):
+                continue
+            ann = ast.unparse(st.annotation)
+            if ann.endswith("KW_ONLY"):
+                kw = True
+            elif "ClassVar" not in ann:
+                fields.append((st.target.id, kw or _kw_only(st.value)))
+        out[node.name] = fields
+    return out
+
+
+def record_faults(rel, jax_src, port_src, used=None):
+    """The shared records of `rel` whose port fields break the rule, one
+    message each. Adds every DROPPED key that excused a missing field to
+    `used`."""
+    used = set() if used is None else used
+    jax_recs, port_recs = record_fields(jax_src), record_fields(port_src)
+    faults = []
+    for name in sorted(set(jax_recs) & set(port_recs)):
+        fn = f"{rel}:{name}"
+        port = port_recs[name]
+        have = {f for f, _ in port}
+        want = []
+        for f, _ in jax_recs[name]:
+            if f"{fn} {f}" in DROPPED and f not in have:
+                used.add(f"{fn} {f}")
+            else:
+                want.append(f)
+        positional = [f for f, kw in port if not kw]
+        bad = [f"position {i}: JAX {j!r}, port {p!r}"
+               for i, (j, p) in enumerate(zip(want, positional)) if j != p]
+        bad += [f"JAX field {j!r} is not a positional field of the port"
+                for j in want[len(positional):]]
+        bad += [f"port-only field {p!r} is positional"
+                for p in positional[len(want):]]
+        if bad:
+            faults.append(f"{name}: " + "; ".join(bad))
+    return faults
+
+
+def file_record_faults(rel, used=None):
+    port = os.path.join(PORT_PKG, rel)
+    if rel in NOT_PORTED or not os.path.exists(port):
+        return []
+    return record_faults(rel, _source(os.path.join(JAX_PKG, rel)), _source(port), used)
+
+
+@pytest.mark.parametrize("rel", FILES)
+def test_port_records_follow_jax(rel):
+    faults = file_record_faults(rel)
+    assert not faults, (
+        f"mvskit_tpu_torch/{rel}: {faults}. Give the port's record JAX's fields in JAX's "
+        f"order and its own fields after them, keyword-only; or add a DROPPED entry for a "
+        f"JAX field the port does not have")
+
+
 def _used_entries():
     used = set()
     for rel in FILES:
         file_signature_faults(rel, used)
+        file_record_faults(rel, used)
     return used
 
 
@@ -348,3 +440,70 @@ def test_signature_check_takes_keyword_only_port_parameters_and_renames():
     unlisted = port.replace("def g(a, key, b=1)", "def g(a, seed, b=1)")
     assert signature_faults("core/x.py", JAX_SRC, unlisted) == [
         "g: position 1: JAX 'key', port 'seed'"]
+
+
+RECORD_SRC = """
+from typing import NamedTuple
+import dataclasses
+
+class P(NamedTuple):
+    level: int
+    grad_steps: int = 0
+    luma_refine: bool = False
+
+@dataclasses.dataclass
+class S:
+    planes: object
+    masks: object
+    covis: object = None
+"""
+
+
+def test_record_check_finds_swapped_and_positional_fields():
+    assert record_faults("x.py", RECORD_SRC, RECORD_SRC) == []
+    swapped = RECORD_SRC.replace("    grad_steps: int = 0\n    luma_refine: bool = False",
+                                 "    luma_refine: bool = False\n    grad_steps: int = 0")
+    assert record_faults("x.py", RECORD_SRC, swapped) == [
+        "P: position 1: JAX 'grad_steps', port 'luma_refine'; "
+        "position 2: JAX 'luma_refine', port 'grad_steps'"]
+    extra = RECORD_SRC.replace("    covis: object = None",
+                               "    covis: object = None\n    use_kernel: bool = True")
+    assert record_faults("x.py", RECORD_SRC, extra) == [
+        "S: port-only field 'use_kernel' is positional"]
+    kw = RECORD_SRC.replace(
+        "    covis: object = None",
+        "    covis: object = None\n"
+        "    use_kernel: bool = dataclasses.field(default=True, kw_only=True)")
+    assert record_faults("x.py", RECORD_SRC, kw) == []
+    marker = RECORD_SRC.replace(
+        "    covis: object = None",
+        "    covis: object = None\n    _: dataclasses.KW_ONLY\n    use_kernel: bool = True")
+    assert record_faults("x.py", RECORD_SRC, marker) == []
+    missing = RECORD_SRC.replace("    masks: object\n", "", 1)
+    assert record_faults("x.py", RECORD_SRC, missing) == [
+        "S: position 1: JAX 'masks', port 'covis'; "
+        "JAX field 'covis' is not a positional field of the port"]
+
+
+def test_record_walk_reads_both_packages_records():
+    """The walk sees the shared records, Scene's and PropagateParams'
+    among them, and holds them on the parent layout: the port's fields in
+    their pre-repair order fail, naming the record."""
+    shared = {}
+    for rel in FILES:
+        port = os.path.join(PORT_PKG, rel)
+        if rel in NOT_PORTED or not os.path.exists(port):
+            continue
+        jr = record_fields(_source(os.path.join(JAX_PKG, rel)))
+        pr = record_fields(_source(port))
+        shared.update({f"{rel}:{n}": pr[n] for n in set(jr) & set(pr)})
+    assert {"image/scene.py:Scene", "pipeline/propagate.py:PropagateParams",
+            "core/patches.py:PatchTable"} <= set(shared), sorted(shared)
+    assert len(shared) >= 10, sorted(shared)
+    scene = dict(shared["image/scene.py:Scene"])
+    assert scene["use_kernel"] and scene["view_shards"] and not scene["planes"]
+    src = _source(os.path.join(PORT_PKG, "pipeline/propagate.py"))
+    old = src.replace("    grad_steps: int = 0\n    grad_lr: float = 0.5\n", "", 1)
+    faults = record_faults("pipeline/propagate.py",
+                           _source(os.path.join(JAX_PKG, "pipeline/propagate.py")), old)
+    assert len(faults) == 1 and faults[0].startswith("PropagateParams: position 20:"), faults
