@@ -1327,12 +1327,15 @@ def grad_kernel_phase(dev):
     refinement candidates) with a seeded cotangent, and on the edge
     lattices at 7 x 7 and 5 x 5: two launches bit for bit, against the
     plain version (GRAD_RTOL), timed against its bound, the plain
-    version and grid_sample's backward. Returns {mode: record}."""
+    version and grid_sample's backward, with its launch plan and ptxas
+    line. Returns {mode: record}."""
     import torch
 
-    from mvskit_tpu_torch.ops import cuda_ncc
+    from mvskit_tpu_torch.ops import _build, cuda_ncc
     from mvskit_tpu_torch.tools import bench_kernel as bk
 
+    _build.load_library()  # built before its ptxas report is read
+    ptxas = _build.ptxas_report()
     scene, sets = window_sets(dev)
     card = card_line()
     records = {}
@@ -1353,6 +1356,8 @@ def grad_kernel_phase(dev):
                    bound_by=b_by, ms_runs=ms, plain_ms_runs=plain_ms, ms=min(ms),
                    plain_ms=min(plain_ms))
         rec["bound_share"] = b_ms / rec["ms"]
+        rec["plan"] = cuda_ncc.grad_plan(rec["windows"], WSIZE, luma)
+        rec["ptxas"] = ptxas.get(f"window_grad_kernel<{1 if luma else 3}, {WSIZE}>")
         rec.update(library_grad(scene, args, mode, cot, got, scale))
         edge = {}
         for wsize in (WSIZE, EDGE_WSIZE):
@@ -1607,7 +1612,8 @@ def main() -> int:
             "launches": polish[run]["launches"][key], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "windows": r["windows"],
-            "bound_share": r["bound_share"], "max_rel_err_f64": r["max_rel_err_f64"],
+            "bound_share": r["bound_share"], "plan": r["plan"], "ptxas": r["ptxas"],
+            "max_rel_err_f64": r["max_rel_err_f64"],
             "plain_f32_max_rel_err_f64": r["plain_f32_max_rel_err_f64"],
             "library_max_rel_err": r["library_max_rel_err"],
             "edge_lattices": r["edge_lattices"],

@@ -59,7 +59,7 @@
 //     level width and height (the 8-way level select once per member,
 //     not per sample) and the lattice's partial sums tl + dx * i and
 //     dy * j, so a sample's position costs one add per coordinate with
-//     lattice()'s rounding;
+//     the plain lattice's rounding, (tl + dx * i) + dy * j;
 //   * no shared-memory box (the first K2 loaded one and lost to plain L2
 //     reads): every tap is read from L2 with __ldg;
 //   * loads ahead of arithmetic: each thread takes MVS_KC samples of the
@@ -169,11 +169,6 @@
 #include "sample_common.cuh"
 
 #include <algorithm>
-#include <map>
-#include <mutex>
-#include <set>
-#include <tuple>
-#include <utility>
 
 #define MVS_MAX_GROUP 128
 #define MVS_THREADS 256
@@ -283,103 +278,14 @@ __device__ __forceinline__ float luma_sample(int v, const Frac& f) {
 
 // ---- K1, K2, K3u, K3g: the persistent window kernel ----
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// make this thread's shared-memory writes visible to the TMA (async proxy)
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// TMA 1-D bulk store of `bytes` (a multiple of 16, both ends 16-byte
-// aligned) from shared to global memory, as one bulk group
-__device__ __forceinline__ void bulk_store(void* dst, const void* src, int bytes) {
-  asm volatile(
-      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
-      "cp.async.bulk.commit_group;\n" ::"l"(dst),
-      "r"(smem_addr(src)), "r"(bytes)
-      : "memory");
-}
-
-// wait until at most N of this thread's bulk stores still read shared memory
-template <int N>
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void bulk_wait_all() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
-// A tile's raw parameters in shared memory, 8 * G words: idx [0, G),
-// lvl [G, 2G), tl [2G, 4G), dx [4G, 6G), dy [6G, 8G). Word w of the
-// tile that starts at window b0, in global memory:
-__device__ __forceinline__ const int* param_word(
-    int w, int G, int64_t b0, const int* __restrict__ idx, const int* __restrict__ lvl,
-    const float* __restrict__ tl, const float* __restrict__ dx,
-    const float* __restrict__ dy) {
-  if (w < G) return idx + b0 + w;
-  if (w < 2 * G) return lvl + b0 + (w - G);
-  const int seg = (w - 2 * G) / (2 * G);
-  const float* src = seg == 0 ? tl : (seg == 1 ? dx : dy);
-  return reinterpret_cast<const int*>(src) + 2 * b0 + (w - 2 * G - seg * 2 * G);
-}
-
-// start the asynchronous copy of the parameters of the n windows from b0
-// into `dst` (laid out for G): 16-byte cp.async where the tile is whole
-// and every slice 16-byte aligned (vec16), else 4-byte, word by word of
-// the n members only, so a ragged last tile reads nothing past the batch
-__device__ __forceinline__ void copy_params(
-    int* dst, int G, int64_t b0, int n, bool vec16, const int* __restrict__ idx,
-    const int* __restrict__ lvl, const float* __restrict__ tl,
-    const float* __restrict__ dx, const float* __restrict__ dy) {
-  if (vec16 && n == G) {  // G % 4 == 0: no 4-word chunk straddles two slices
-    for (int k = threadIdx.x; k < 2 * G; k += blockDim.x)
-      cp_async16(dst + 4 * k, param_word(4 * k, G, b0, idx, lvl, tl, dx, dy));
-  } else {
-    // the n members' words: idx [0, n), lvl [n, 2n), then 2n each of
-    // tl, dx and dy; w is the word's place in the G layout
-    for (int k = threadIdx.x; k < 8 * n; k += blockDim.x) {
-      int w = k;
-      if (k >= 2 * n) {
-        const int seg = (k - 2 * n) / (2 * n);
-        w = 2 * G + seg * 2 * G + (k - 2 * n - seg * 2 * n);
-      } else if (k >= n) {
-        w = G + (k - n);
-      }
-      cp_async4(dst + w, param_word(w, G, b0, idx, lvl, tl, dx, dy));
-    }
-  }
-}
-
 // A tile's member table in shared memory, resolved once per tile from
 // its raw parameters: per member m its plane base (in ints) and level
 // width and height, and the lattice's partial sums
 //   a[m * ws + i] = (tl.x + dx.x * i, tl.y + dx.y * i),
 //   c[m * ws + j] = (dy.x * j, dy.y * j),
-// so sample (i, j) lies at a + c, rounded exactly as lattice() rounds
-// (tl + d1 * i) + d2 * j. Under nowx every i and j is 0.
+// so sample (i, j) lies at a + c, rounded exactly as the plain version
+// (cuda_ncc.lattice) rounds (tl + d1 * i) + d2 * j. Under nowx every i
+// and j is 0.
 struct Members {
   int64_t* base;  // [G]
   int2* wh;       // [G]
@@ -469,12 +375,6 @@ __device__ __forceinline__ void sample_tile(const int* __restrict__ planes,
   }
 }
 
-// windows of tile `tile`: G, or what is left of the batch
-__device__ __forceinline__ int tile_members(int tile, int G, int B) {
-  const int64_t left = (int64_t)B - (int64_t)tile * G;
-  return left < G ? (int)left : G;
-}
-
 // The window kernel: persistent blocks, each walking the tiles of G
 // consecutive windows with stride gridDim.x. Dynamic shared memory
 // (plan_tiles): `nstages` output stages of stage_floats floats, two raw
@@ -545,34 +445,7 @@ window_kernel(const int* __restrict__ planes, LevelMeta meta, int total, int ni,
 
 // ---- K4: the fused form, persistent groups, threads over lattice columns ----
 
-// Exact conversions on the FP32 pipe, for K4 only. A float in [2^23,
-// 2^24) has an ulp of 1, so its low mantissa bits hold an integer.
-#define MVS_TWO23 8388608.0f    // 2^23, bits 0x4B000000
-#define MVS_MAGIC 12582912.0f   // 1.5 * 2^23, bits 0x4B400000
 #define MVS_COL_PASS 8          // K4, run-time size: samples of a column per pass
-
-// byte k of v as a float: one PRMT puts the byte into the mantissa of
-// 2^23 (bits 0x4B0000bb), and subtracting 2^23 leaves the byte exactly:
-// byte_at's value without its shift, mask and I2F
-__device__ __forceinline__ float byte_f32(int v, int k) {
-  return __fsub_rn(__int_as_float(__byte_perm(v, 0x4B000000, 0x7440 + k)), MVS_TWO23);
-}
-
-// The tap origin of coordinate x on a level whose last origin is `lim`
-// (w - 2 as a float): l = min(max(trunc(x), 0), w - 2), equal to
-// bilinear_frac's for every float x (NaN and -inf give 0, +inf gives
-// w - 2). The clamp runs in float first (fmaxf(NaN, 0) is 0, as
-// __float2int_rz(NaN) is), so xc lies in [0, w - 2] and trunc(xc) =
-// floor(xc); then t = xc + 1.5 * 2^23 rounded toward zero is 1.5 * 2^23 +
-// floor(xc) for any xc in [-2^22, 2^22): t less 1.5 * 2^23 is l as a
-// float (returned), and t's bits (`tb`) are 0x4B400000 + l. (1.5 * 2^23
-// rather than 2^23 keeps a level narrower than 2 pixels exact too: there
-// w - 2 < 0, and so is the plain version's origin.)
-__device__ __forceinline__ float tap_origin(float x, float lim, unsigned& tb) {
-  const float t = __fadd_rz(fminf(fmaxf(x, 0.0f), lim), MVS_MAGIC);
-  tb = __float_as_uint(t);
-  return __fsub_rn(t, MVS_MAGIC);
-}
 
 // A group's member table for K4 in shared memory: per member its plane
 // base (in ints), its last tap origins (w - 2, h - 2) as floats and its
@@ -620,8 +493,8 @@ __host__ __device__ constexpr int fused_cols() {
 // q < ncol (ncol <= NCOL, T threads), into the stage. Per column the
 // member's base, level size and six lattice floats are read once, and so
 // is the column's partial sum a = tl + d1 * i; sample j lies at a + d2 *
-// j, rounded as lattice() rounds (tl + d1 * i) + d2 * j; no sample does
-// an integer division. The tap word ly * w + lx comes from the origins'
+// j, rounded as cuda_ncc.lattice rounds (tl + d1 * i) + d2 * j; no sample
+// does an integer division. The tap word ly * w + lx comes from the origins'
 // bits bx = 0x4B400000 + lx and by as by * w + bx - 0x4B400000 * (w +
 // 1), in 32-bit arithmetic that wraps (exact, as the word fits an int).
 // Every tap load of the columns is issued before any tap arithmetic,
@@ -845,61 +718,6 @@ struct Launch {
 
 // ---- the window kernel's launch plan ----
 
-// the device's SM count and opt-in shared-memory limit per block, and
-// per kernel instance its opt-in and its resident blocks per SM for a
-// block size and shared memory, each queried once and cached
-struct DeviceInfo { int dev, sms, optin; };
-
-static std::mutex g_cache_lock;
-static std::map<int, DeviceInfo> g_devices;
-static std::set<std::pair<const void*, int>> g_optins;
-static std::map<std::tuple<const void*, int, int, int>, int> g_occupancy;
-
-static int device_info(DeviceInfo* out) {
-  int dev;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  std::lock_guard<std::mutex> hold(g_cache_lock);
-  auto it = g_devices.find(dev);
-  if (it != g_devices.end()) { *out = it->second; return 0; }
-  DeviceInfo d{dev, 0, 0};
-  err = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&d.optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return (int)err;
-  g_devices[dev] = d;
-  *out = d;
-  return 0;
-}
-
-// allow `fn` the card's whole dynamic shared memory per block (above
-// 48 KB only by opt-in), once per instance and device
-static int opt_in_smem(const void* fn, const DeviceInfo& d) {
-  std::lock_guard<std::mutex> hold(g_cache_lock);
-  if (g_optins.count({fn, d.dev})) return 0;
-  const cudaError_t err =
-      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, d.optin);
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // consume it: the next launch's check reads it
-    return (int)err;
-  }
-  g_optins.insert({fn, d.dev});
-  return 0;
-}
-
-static int resident_blocks(const void* fn, int dev, int threads, int smem, int* blocks) {
-  std::lock_guard<std::mutex> hold(g_cache_lock);
-  const auto key = std::make_tuple(fn, dev, threads, smem);
-  auto it = g_occupancy.find(key);
-  if (it != g_occupancy.end()) { *blocks = it->second; return 0; }
-  const cudaError_t err =
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, threads, (size_t)smem);
-  if (err != cudaSuccess) return (int)err;
-  if (*blocks < 1) return (int)cudaErrorLaunchOutOfResources;
-  g_occupancy[key] = *blocks;
-  return 0;
-}
-
 struct Plan {
   int tile, grid, threads, smem, stages, tma, vec16, blocks_per_sm, sms, stage_floats;
 };
@@ -1028,8 +846,6 @@ static int plan_fused(int B, int wsize, int group, bool out16, bool params16, Pl
   p->grid = (int)std::min((int64_t)(B / group), (int64_t)d.sms * p->blocks_per_sm);
   return 0;
 }
-
-static bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 template <int C, int WS, int ABL>
 static int launch_fused_ws(const Launch& a) {

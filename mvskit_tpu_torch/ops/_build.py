@@ -189,5 +189,8 @@ def load_library() -> ctypes.CDLL:
                 fn = getattr(lib, f"mvs_sample_windows_{chans}grad")
                 fn.argtypes = common[:13] + [ptr, ptr, i32, i32, ptr]
                 fn.restype = i32
+            # (luma, B, wsize, int plan[9])
+            lib.mvs_sample_windows_grad_plan.argtypes = [i32] * 3 + [ints]
+            lib.mvs_sample_windows_grad_plan.restype = i32
             _lib = lib
         return _lib

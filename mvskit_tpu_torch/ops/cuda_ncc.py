@@ -22,8 +22,9 @@ ablated launches per switch and the backward kernel's launches (keys
 ``grad`` / ``luma_grad``); ``WINDOWS`` counts those launches per
 batch size. ``grouped_plan`` and ``ungrouped_plan`` report how the
 persistent window kernel launches a batch on the current card (tile,
-grid, threads, shared memory, output stages, store path), and
-``fused_plan`` how the fused form (K4) does.
+grid, threads, shared memory, output stages, store path),
+``fused_plan`` how the fused form (K4) does, and ``grad_plan`` how the
+backward kernel does.
 
 The gradient polish of the refinement (``pipeline/refine.py``) needs
 the samples' derivative with respect to the lattice. The JAX package
@@ -314,6 +315,30 @@ def fused_plan(B: int, wsize: int, group: int, luma: bool = False) -> dict:
     `threads` serve one lattice row each (group * wsize rows a group).
     Raises where the launch would fail. Needs the card."""
     return _plan("luma_fused" if luma else "fused", B, wsize, group)
+
+
+GRAD_PLAN_KEYS = ("tile", "grid", "threads", "lanes", "smem_bytes", "cot_floats",
+                  "bulk_copy", "blocks_per_sm", "sms")
+
+
+def grad_plan(B: int, wsize: int, luma: bool = False) -> dict:
+    """How the backward kernel launches B windows of wsize on the current
+    card (the wrapper's 16-byte aligned arrays): the tile (windows a
+    block takes at a time, one per `lanes` threads), the persistent grid,
+    threads per block, lanes a window, dynamic shared memory, cotangent
+    floats a buffer, whether whole tiles arrive by TMA bulk copies,
+    resident blocks per SM and the SM count. Needs the card."""
+    from . import _build
+
+    lib = _build.load_library()
+    plan = (ctypes.c_int * len(GRAD_PLAN_KEYS))()
+    err = lib.mvs_sample_windows_grad_plan(int(luma), B, wsize, plan)
+    if err != 0:
+        raise RuntimeError(f"sample_windows grad plan (B {B}, wsize {wsize}, luma {luma}) "
+                           f"failed: CUDA error {err}")
+    rec = dict(zip(GRAD_PLAN_KEYS, plan))
+    rec["bulk_copy"] = bool(rec["bulk_copy"])
+    return rec
 
 
 def sample_grad_terms(scene: Scene, idx, lvl, tl, dx, dy, wsize: int, grad_out,

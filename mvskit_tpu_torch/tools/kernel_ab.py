@@ -1,7 +1,7 @@
 """Parent against change: a phase of `chip_smoke.py` of two checkouts,
 in turns, on one card.
 
-    python -m mvskit_tpu_torch.tools.kernel_ab PARENT_DIR [--phase kernels|paths] [--out FILE]
+    python -m mvskit_tpu_torch.tools.kernel_ab PARENT_DIR [--phase kernels|grad|paths] [--out FILE]
 
 PARENT_DIR is another checkout of the repository (for example the
 parent commit unpacked with `git archive`). The tool runs the phase of
@@ -14,6 +14,9 @@ launch on the same windows (`ungrouped_ms_same_windows`, K1 beside K2
 and K3u beside K3g), of the grouped launch on the same windows
 (`grouped_ms_same_windows`, K2 and K3g beside K4) and on the gauntlet's
 windows (`gauntlet_windows`);
+`grad` is `chip_smoke.grad_kernel_phase` (the sampler's backward kernel
+on K1's RGB windows and K3u's luma windows, each held to its plain
+version), compared by each mode's device ms;
 `paths` is `chip_smoke.paths_phase` (RGB, luma, short ungrouped luma,
 3-illumination runs), compared by each path's propagation seconds. It
 prints the card (name and power limit), then per record each run's
@@ -35,7 +38,8 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[2]
 ORDER = ("parent", "change", "change", "parent")
 MARK = "KERNEL_AB "
-CALL = {"kernels": "cs.kernel_phase(dev)", "paths": "cs.paths_phase(dev, work)"}
+CALL = {"kernels": "cs.kernel_phase(dev)", "grad": "cs.grad_kernel_phase(dev)",
+        "paths": "cs.paths_phase(dev, work)"}
 
 
 def metrics(phase: str, record: dict) -> dict:

@@ -12,8 +12,13 @@ loads. It counts the loop body's instructions by class
 (``CLASSES``: integer-divide sequences, conversions, shared and global
 loads and stores, FP32, PRMT, integer, other) and divides them by the
 samples one pass of the loop takes, counted from its global loads (4
-per RGB sample, 1 per luma sample): the instructions each sample issues
-in the loop. What the loop runs once per group or tile is left out.
+per RGB sample, 1 per luma sample; the backward's first design also
+loads each sample's C cotangent floats, 7 and 2): the instructions each
+sample issues in the loop. What the loop runs once per group or tile is
+left out; where the loop is a whole tile that reduces by shuffles after
+its samples (the backward's staged design), ``walk_per_sample_total``
+counts the walk alone, from the loop's first global load to its first
+shuffle.
 
 With ``--throughput`` it also builds a small probe library with nvcc and
 times, on the card, long chains of one instruction kind (FADD; I2F;
@@ -118,10 +123,23 @@ def loops(insns) -> List[tuple]:
     return out
 
 
+def loads_per_sample(name: str, body) -> int:
+    """Global loads one sample of the loop `body` issues: its tap words
+    (C = 3 reads 4 words a sample, C = 1 one); for the backward
+    (``window_grad_kernel``) also its C cotangent floats where the loop
+    reads no shared memory, as the one-warp-a-window design reads its
+    cotangent from global memory (the staged design reads it with LDS)."""
+    rgb = re.search(r"<3,", name) is not None
+    loads = 4 if rgb else 1
+    if name.startswith("window_grad_kernel") and not any(op == "LDS" for _, op, _, _ in body):
+        loads += 3 if rgb else 1
+    return loads
+
+
 def sampling_loop(name: str, insns) -> Optional[dict]:
     """The innermost loop with global loads, its class counts and the
-    counts per sample (taps per sample from the instance's channel
-    count: C = 3 reads 4 words a sample, C = 1 one)."""
+    counts per sample (samples from the loop's global loads,
+    ``loads_per_sample`` a sample)."""
     best = None
     for a, b in loops(insns):
         body = insns[a:b + 1]
@@ -135,14 +153,23 @@ def sampling_loop(name: str, insns) -> Optional[dict]:
     a, b, n_ldg = best
     counts = collections.Counter({k: 0 for k in ("int_div", "other", *dict(CLASSES))})
     counts.update(classify(op, mods) for _, op, mods, _ in insns[a:b + 1])
-    taps = 4 if re.search(r"<3,", name) else 1
-    samples = n_ldg / taps
-    return {"instructions": b - a + 1, "samples_per_pass": samples,
-            "counts": dict(counts),
-            "per_sample": {k: v / samples for k, v in sorted(counts.items())},
-            "per_sample_total": (b - a + 1) / samples,
-            "opcodes": dict(collections.Counter(op + mods for _, op, mods, _ in
-                                                insns[a:b + 1]).most_common(40))}
+    body = insns[a:b + 1]
+    loads = loads_per_sample(name, body)
+    samples = n_ldg / loads
+    rec = {"instructions": b - a + 1, "samples_per_pass": samples, "loads_per_sample": loads,
+           "counts": dict(counts),
+           "per_sample": {k: v / samples for k, v in sorted(counts.items())},
+           "per_sample_total": (b - a + 1) / samples,
+           "opcodes": dict(collections.Counter(op + mods for _, op, mods, _ in
+                                               body).most_common(40))}
+    ops = [op for _, op, _, _ in body]
+    first = ops.index("LDG")
+    if "SHFL" in ops[first:]:
+        # a loop that walks its samples and then reduces them by shuffles
+        # (the backward's staged design, whose loop is a whole tile): the
+        # walk alone, from its first global load to its first shuffle
+        rec["walk_per_sample_total"] = (ops.index("SHFL", first) - first) / samples
+    return rec
 
 
 PROBE_SRC = r"""

@@ -207,6 +207,16 @@ def test_kernel_ab_compares_nested_same_window_times():
         "propagate_s": 12.5}
 
 
+def test_kernel_ab_grad_phase_runs_the_backward_phase():
+    """`--phase grad` runs chip_smoke.grad_kernel_phase in each checkout
+    and compares each mode's device ms (its record's bound beside it)."""
+    from mvskit_tpu_torch.tools import kernel_ab
+
+    assert "cs.grad_kernel_phase(dev)" in kernel_ab.snippet("grad")
+    rec = {"ms": 0.012, "bound_ms": 0.00476, "plain_ms": 1.04, "library_ms": 0.046}
+    assert kernel_ab.metrics("grad", rec) == {"ms": 0.012}
+
+
 def test_level_arrays_are_built_once_per_scene_layout(windows):
     """The launch's host-side level metadata (ctypes arrays of the
     scene's static level offsets, widths and heights) is built once per

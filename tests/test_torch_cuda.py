@@ -29,7 +29,10 @@ from the same float32 lattice: within 1e-5 of each output's sum of term
 magnitudes (``cuda_ncc.grad_scale``; the float32 plain version, which
 forms each tap's product with the cotangent before subtracting, strays
 up to a few 1e-5 of it by itself), the same NaN pattern (float32 plain
-version too), and two launches bit for bit; the polished refinement through it tracks the plain path
+version too), and two launches bit for bit, at 7 x 7 and the run-time
+sizes 5, 9, 15, at batches of 1, 3, 5, one tile + 1 and 786,432
+windows, and with grad_out or tl at an address 4 bytes past a 16-byte
+boundary; the polished refinement through it tracks the plain path
 within the refinement tolerance (coord 1e-4 on >= 99 % of rows), and
 equals itself on view shards of the card bit for bit."""
 
@@ -623,15 +626,13 @@ def _grad_windows(scene, kind, wsize, luma):
     return args, cot
 
 
-@pytest.mark.parametrize("kind", ["plane", "edge"])
-@pytest.mark.parametrize("wsize", [7, 5])
-@pytest.mark.parametrize("luma", [False, True])
-def test_backward_kernel_matches_plain(card, kind, wsize, luma):
+def _check_backward(scene, args, cot, wsize, luma):
+    """The backward kernel on (args, cot): two launches (and only they)
+    bit for bit, each output within 1e-5 (chip_smoke.GRAD_RTOL) of the
+    float64 plain version's, relative to grad_scale, with its NaN and
+    finite patterns (the float32 plain version's patterns too)."""
     from mvskit_tpu_torch.ops import cuda_ncc
-    from mvskit_tpu_torch.utils import synthetic
 
-    _, _, scene = synthetic.plane_scene(n_views=6, width=160, height=120, device=card)
-    args, cot = _grad_windows(scene, kind, wsize, luma)
     cuda_ncc.reset_launches()
     got = cuda_ncc.sample_windows_grad(scene, *args, wsize, cot, luma=luma)
     again = cuda_ncc.sample_windows_grad(scene, *args, wsize, cot, luma=luma)
@@ -651,6 +652,83 @@ def test_backward_kernel_matches_plain(card, kind, wsize, luma):
         fin = torch.isfinite(w)
         err = (g.double() - w).abs()[fin] / sc[fin]
         assert (err <= 1e-5).all(), err.max()
+
+
+@pytest.mark.parametrize("kind", ["plane", "edge"])
+@pytest.mark.parametrize("wsize", [7, 5, 9, 15])
+@pytest.mark.parametrize("luma", [False, True])
+def test_backward_kernel_matches_plain(card, kind, wsize, luma):
+    """WS = 7 and the run-time size instance (5: four windows a warp; 9,
+    15: two)."""
+    from mvskit_tpu_torch.utils import synthetic
+
+    _, _, scene = synthetic.plane_scene(n_views=6, width=160, height=120, device=card)
+    args, cot = _grad_windows(scene, kind, wsize, luma)
+    _check_backward(scene, args, cot, wsize, luma)
+
+
+def _edge_batch(scene, B, wsize, luma):
+    from mvskit_tpu_torch.tools.bench_kernel import edge_windows
+
+    args = edge_windows(scene, B, seed=B)
+    gen = torch.Generator(device=scene.device).manual_seed(B)
+    cot = torch.randn((B, (1 if luma else 3) * wsize * wsize), generator=gen,
+                      device=scene.device)
+    return args, cot
+
+
+@pytest.mark.parametrize("batch,wsize", [("1", 7), ("3", 7), ("5", 7), ("tile+1", 7),
+                                         ("786432", 7), ("1", 9), ("3", 9), ("5", 9),
+                                         ("tile+1", 9)])
+@pytest.mark.parametrize("luma", [False, True])
+def test_backward_kernel_every_batch(card, batch, wsize, luma):
+    """Batches of 1, 3, 5 windows, one tile and one window (a second
+    tile of one window) and 786,432 (many tiles a block; the last
+    tile's ragged size depends on the tile), on the edge lattices: the
+    ragged last tile is staged by 4-byte copies, the others by bulk
+    copies, and every window's outputs are held to the plain version."""
+    from mvskit_tpu_torch.ops import cuda_ncc
+    from mvskit_tpu_torch.utils import synthetic
+
+    _, _, scene = synthetic.plane_scene(n_views=6, width=160, height=120, device=card)
+    plan = cuda_ncc.grad_plan(4096, wsize, luma)
+    B = plan["tile"] + 1 if batch == "tile+1" else int(batch)
+    args, cot = _edge_batch(scene, B, wsize, luma)
+    _check_backward(scene, args, cot, wsize, luma)
+    if B == 786432:
+        big = cuda_ncc.grad_plan(B, wsize, luma)
+        assert big["grid"] < B // big["tile"] and big["bulk_copy"]
+
+
+@pytest.mark.parametrize("array", ["grad_out", "tl"])
+@pytest.mark.parametrize("luma", [False, True])
+def test_backward_kernel_unaligned_arrays(card, array, luma):
+    """A contiguous grad_out (or tl) view that starts 4 bytes past a
+    16-byte boundary: every tile is staged by 4-byte copies, the launch
+    is neither refused nor sent to the plain version, and it gives the
+    aligned launch's bits."""
+    from mvskit_tpu_torch.ops import cuda_ncc
+    from mvskit_tpu_torch.utils import synthetic
+
+    _, _, scene = synthetic.plane_scene(n_views=6, width=160, height=120, device=card)
+    args, cot = _grad_windows(scene, "plane", WSIZE, luma)
+    aligned = cuda_ncc.sample_windows_grad(scene, *args, WSIZE, cot, luma=luma)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        assert out.is_contiguous() and out.data_ptr() % 16 == 4
+        return out
+
+    if array == "grad_out":
+        cot = shifted(cot)
+    else:
+        args = (*args[:2], shifted(args[2]), *args[3:])
+    _check_backward(scene, args, cot, WSIZE, luma)
+    got = cuda_ncc.sample_windows_grad(scene, *args, WSIZE, cot, luma=luma)
+    for g, a in zip(got, aligned):
+        assert torch.equal(_bits(g), _bits(a))
 
 
 def test_backward_kernel_is_the_autograd_of_the_launch(card):

@@ -16,7 +16,15 @@ own functions, which the kernel must equal:
     neighbours, past int32) and a seeded random set of float32 bit
     patterns, at level widths 0 to 4096;
   * on the finite coordinates within int32, the JAX package's tap
-    origin (mvskit_tpu/ops/sampling.py: clip(x.astype(int32), 0, w - 2)).
+    origin (mvskit_tpu/ops/sampling.py: clip(x.astype(int32), 0, w - 2));
+  * the backward kernel's (csrc/sample_windows_grad.cu) slope
+    clip'(x - l), l from tap_origin, against ops/sampling.clip01_slope
+    of the plain version's fractions and against autograd's derivative
+    of those fractions, on both axes, over the edge set, every integer
+    from -3 to w + 2 and their neighbours, at level widths 0 to 4096;
+  * its tap differences: a byte put into the mantissa of 2^23 by one
+    PRMT, with no subtraction, differs from another so put by exactly
+    the bytes' difference, for every pair of bytes.
 
 No tolerance: every comparison is of bits. The kernel's own output is
 held to the plain version on the card (tests/test_torch_cuda.py)."""
@@ -172,3 +180,63 @@ def test_edge_windows_reach_every_case():
     for luma, C in ((False, 3), (True, 1)):
         out, fit = cuda_ncc.sample_windows(scene, *args, 7, group=32, luma=luma, fused=True)
         assert fit.all() and out.shape == (96, C * 49)
+
+
+def clip01_slope(v):
+    """The backward kernel's clip01_slope: (v > 0 && v < 1) ? 1 : ((v ==
+    0 || v == 1) ? 0.5 : 0), so NaN gives 0."""
+    with np.errstate(invalid="ignore"):
+        inside = (v > 0) & (v < 1)
+        tie = (v == 0) | (v == 1)
+    return np.where(inside, np.float32(1), np.where(tie, np.float32(0.5), np.float32(0)))
+
+
+def _slope_coordinates(w):
+    f = np.float32
+    ints = np.arange(-3, w + 3, dtype=np.float32)
+    return np.concatenate([_edge_coordinates(w), ints, np.nextafter(ints, f(-np.inf)),
+                           np.nextafter(ints, f(np.inf)), ints + f(0.5)])
+
+
+@pytest.mark.parametrize("w", [0, 1, 2, 3, 20, 80, 160, 640, 4096])
+def test_backward_slope_equals_the_plain_fractions_slope(w):
+    """The kernel's slope of each axis, clip'(x - l) with l = tap_origin's
+    float and x - l rounded to nearest, equals clip01_slope of the plain
+    version's x - lx and the derivative autograd takes through its
+    fractions dx1, dy1: 1 inside, 0.5 on an integer or on w - 1, 0
+    outside the level and at NaN or +-inf."""
+    x = _slope_coordinates(w)
+    y = np.random.default_rng(w + 7).permutation(x)
+    got = []
+    for c in (x, y):
+        _, l = tap_origin(c, w)
+        with np.errstate(invalid="ignore"):
+            got.append(clip01_slope(c - l))
+    tx = torch.from_numpy(x.copy()).requires_grad_()
+    ty = torch.from_numpy(y.copy()).requires_grad_()
+    tw = torch.full(x.shape, w, dtype=torch.int32)
+    lx, ly, _, dx1, _, dy1 = sampling._bilinear_frac(tx, ty, tw, tw)
+    autograd = torch.autograd.grad(dx1.sum() + dy1.sum(), (tx, ty))
+    for k, (c, lo) in enumerate(((tx, lx), (ty, ly))):
+        want = sampling.clip01_slope(c.detach() - lo.to(torch.float32)).numpy()
+        np.testing.assert_array_equal(_bits(got[k]), _bits(want))
+        np.testing.assert_array_equal(_bits(got[k]), _bits(autograd[k].numpy()))
+    # every value of the slope occurs
+    assert {0.0, 0.5, 1.0} <= set(np.concatenate(got).tolist()) or w < 2
+
+
+@pytest.mark.parametrize("k", [0, 1, 2, 3])
+def test_biased_byte_differences_are_exact(k):
+    """byte_biased(a) - byte_biased(b), both in [2^23, 2^24), is a - b
+    exactly for all 256 x 256 byte pairs in byte position k, the same
+    float as byte_f32(a) - byte_f32(b)."""
+    rng = np.random.default_rng(10 + k)
+    other = rng.integers(0, 2**32, 256, dtype=np.uint64).astype(np.uint32)
+    mask = np.uint32(0xFF << (8 * k))
+    v = ((other & ~mask) | (np.arange(256, dtype=np.uint32) << np.uint32(8 * k))).view(np.int32)
+    biased = byte_perm(v.view(np.uint32), 0x4B000000, 0x7440 + k).view(np.float32)
+    diff = biased[:, None] - biased[None, :]
+    want = (np.arange(256)[:, None] - np.arange(256)[None, :]).astype(np.float32)
+    np.testing.assert_array_equal(_bits(diff), _bits(want + np.float32(0)))
+    f = byte_f32(v, k)
+    np.testing.assert_array_equal(_bits(diff), _bits(f[:, None] - f[None, :]))
