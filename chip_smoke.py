@@ -746,14 +746,17 @@ def cli_path(tag, dev, prefix, *flags):
     return report, wall, launches, windows, plane_quality(cloud)
 
 
-def shard_stats():
+def shard_stats(trace=None):
     """The view-sharded sampler's calls per (shard, form) with their
-    windows per launch, and its host syncs."""
+    windows per launch, and its host syncs (the sync spans of `trace`,
+    a utils/profiling.Trace, at "sampler.shard_counts")."""
     from mvskit_tpu_torch.ops import ncc
+    from mvskit_tpu_torch.utils import profiling
 
     calls = {f"{s}/{f}": {"launches": n, "windows_per_launch": ncc.SHARD_WINDOWS[s, f] / n}
              for (s, f), n in sorted(ncc.SHARD_CALLS.items())}
-    return {"calls": calls, "syncs": ncc.SHARD_SYNCS["sampler"]}
+    syncs = profiling.sync_count(trace, "sampler.shard_counts") if trace is not None else 0
+    return {"calls": calls, "syncs": syncs}
 
 
 def dp_stats():
@@ -770,7 +773,11 @@ def dp_stats():
 def engine_path(tag, dev, prefix, scene=None, mesh_devices=None, **overrides):
     """PMMVS through the Python API (the luma search has no CLI flag),
     seed + run, with the launch counters reset just before and read
-    just after. Returns (engine, report, wall, launches, windows, m)."""
+    just after; a mesh run records its spans (utils/profiling.tracing)
+    for the sampler's host syncs. Returns (engine, report, wall,
+    launches, windows, m)."""
+    import contextlib
+
     import numpy as np
     import torch
 
@@ -778,6 +785,7 @@ def engine_path(tag, dev, prefix, scene=None, mesh_devices=None, **overrides):
     from mvskit_tpu_torch.ops import cuda_ncc, ncc
     from mvskit_tpu_torch.parallel import shard as sh
     from mvskit_tpu_torch.pipeline.driver import PMMVS
+    from mvskit_tpu_torch.utils import profiling
 
     cfg = MVSConfig.from_option_file(prefix)
     for k, v in overrides.items():
@@ -790,9 +798,11 @@ def engine_path(tag, dev, prefix, scene=None, mesh_devices=None, **overrides):
     t0 = time.time()
     engine = PMMVS(cfg, scene=scene, device=dev, log=lambda *a: None,
                    mesh_devices=mesh_devices)
+    recording = profiling.tracing() if mesh_devices is not None else contextlib.nullcontext()
     try:
-        engine.seed()
-        engine.run(write_snapshots=False)
+        with recording as trace:
+            engine.seed()
+            engine.run(write_snapshots=False)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         wall = time.time() - t0
@@ -801,7 +811,7 @@ def engine_path(tag, dev, prefix, scene=None, mesh_devices=None, **overrides):
         data = engine.collect()
     finally:
         engine.close()
-    report = dict(engine.report, shards=shard_stats(), dp=dp_stats(), peak_mem_gib=(
+    report = dict(engine.report, shards=shard_stats(trace), dp=dp_stats(), peak_mem_gib=(
         torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else None))
     cloud = data["coord"][:, :3]
     if cloud.shape[0] <= 0 or not np.isfinite(cloud).all():

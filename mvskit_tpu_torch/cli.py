@@ -3,14 +3,19 @@
     python -m mvskit_tpu_torch <prefix> [--device cuda|cpu]
     python -m mvskit_tpu_torch <prefix> --filter-only --resume-iter 1
     python -m mvskit_tpu_torch <prefix> --device cpu --mesh 1,2,2
+    python -m mvskit_tpu_torch <prefix> --trace-spans --report run.json
 
 Same dataset directory contract and outputs as ``python -m mvskit_tpu``.
 ``--device`` defaults to ``cuda`` and never falls back to the CPU.
+``--trace-spans`` records the program's spans and host syncs over the
+run (``utils/profiling.tracing``); the report then holds their summary
+under ``spans``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -62,6 +67,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--report", default=None,
                    help="write a JSON run report (stage seconds, alive "
                         "counts, filter kills) to this path")
+    p.add_argument("--trace-spans", action="store_true",
+                   help="record the program's spans and host syncs over the run; "
+                        "the report gains their summary under 'spans' (off by default)")
     return p
 
 
@@ -95,6 +103,7 @@ def main(argv=None) -> int:
 
     from .config import MVSConfig
     from .pipeline.driver import PMMVS
+    from .utils import profiling
 
     cfg = MVSConfig.from_option_file(args.prefix, args.option)
     for flag, field in OVERRIDES:
@@ -104,23 +113,26 @@ def main(argv=None) -> int:
         cfg.mesh_dp, cfg.mesh_view, cfg.mesh_tile = args.mesh
     print(cfg.summary(), file=sys.stderr)
 
-    engine = PMMVS(cfg, device=args.device,
-                   log=lambda *a: print(*a, file=sys.stderr))
     out = args.out or os.path.join(args.prefix, "ply", "final_patches")
-    try:
-        engine.seed(resume_iter=args.resume_iter)
-        if args.filter_only:
-            engine.filter()
-        else:
-            engine.run(write_snapshots=not args.no_snapshots)
-        engine.write_patches(out, export_ply=True, export_patch=args.export_patch)
-    finally:
-        engine.close()
+    with (profiling.tracing() if args.trace_spans else contextlib.nullcontext()) as trace:
+        engine = PMMVS(cfg, device=args.device,
+                       log=lambda *a: print(*a, file=sys.stderr))
+        try:
+            engine.seed(resume_iter=args.resume_iter)
+            if args.filter_only:
+                engine.filter()
+            else:
+                engine.run(write_snapshots=not args.no_snapshots)
+            engine.write_patches(out, export_ply=True, export_patch=args.export_patch)
+        finally:
+            engine.close()
     print(f"wrote {out}.ply", file=sys.stderr)
     if args.report:
         report = dict(engine.report, device=str(engine.device),
                       strategy=cfg.strategy, final_alive=engine.table.n_alive(),
                       prop_params=engine.prop_params._asdict())
+        if trace is not None:
+            report["spans"] = trace.summary()
         with open(args.report, "w") as f:
             json.dump(report, f, indent=1)
     return 0

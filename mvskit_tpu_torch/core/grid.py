@@ -24,6 +24,7 @@ import torch
 from ..geometry import camera as cam
 from ..image.scene import Scene
 from ..parallel import shard as sh
+from ..utils import profiling
 from .patches import PatchTable, compact_by_keys, member_mask, position_in_list
 
 INF = float(1e30)
@@ -315,27 +316,28 @@ def build_grid(
     """Slots, vslots, z-buffer and evictions of the table's rows below
     `row_limit`; `dp_devices` deals those rows to the dp devices in
     contiguous blocks and merges exactly (``_fill_slots``,
-    ``build_depth_maps``)."""
+    ``build_depth_maps``). The recorder sees it as span ``grid``."""
     if v_capacity is None:
         v_capacity = capacity
-    slots, evicted = _fill_slots(
-        scene, table, table.images, level, csize, capacity, row_limit=row_limit,
-        dp_devices=dp_devices,
-    )
-    vslots, _ = _fill_slots(
-        scene, table, table.vimages, level, csize, v_capacity,
-        row_limit=row_limit, dp_devices=dp_devices,
-    )
-    if with_depth:
-        depth, depth_idx = build_depth_maps(
-            scene, table, level, csize, row_limit=row_limit, dp_devices=dp_devices,
+    with profiling.span("grid"):
+        slots, evicted = _fill_slots(
+            scene, table, table.images, level, csize, capacity, row_limit=row_limit,
+            dp_devices=dp_devices,
         )
-    else:
-        n = scene.n_images
-        gw, gh = grid_dims(scene, level, csize)
-        dev = table.coord.device
-        depth = torch.full((n, gh, gw), INF, dtype=torch.float32, device=dev)
-        depth_idx = torch.full((n, gh, gw), -1, dtype=torch.int32, device=dev)
+        vslots, _ = _fill_slots(
+            scene, table, table.vimages, level, csize, v_capacity,
+            row_limit=row_limit, dp_devices=dp_devices,
+        )
+        if with_depth:
+            depth, depth_idx = build_depth_maps(
+                scene, table, level, csize, row_limit=row_limit, dp_devices=dp_devices,
+            )
+        else:
+            n = scene.n_images
+            gw, gh = grid_dims(scene, level, csize)
+            dev = table.coord.device
+            depth = torch.full((n, gh, gw), INF, dtype=torch.float32, device=dev)
+            depth_idx = torch.full((n, gh, gw), -1, dtype=torch.int32, device=dev)
     return GridState(slots, vslots, depth, depth_idx, evicted)
 
 

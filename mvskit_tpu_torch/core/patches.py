@@ -13,6 +13,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import profiling
+
 
 class PatchTable(NamedTuple):
     coord: torch.Tensor    # [N, 4] homogeneous, w = 1
@@ -37,7 +39,8 @@ class PatchTable(NamedTuple):
         return count_valid(self.images)
 
     def n_alive(self) -> int:
-        return int(self.alive.sum())
+        with profiling.sync("table.n_alive"):
+            return int(self.alive.sum())
 
 
 def empty_table(capacity: int, max_views: int, device) -> PatchTable:
@@ -75,7 +78,8 @@ def from_numpy(
     t = empty_table(capacity, max_views, device)
 
     def put(dst, src):
-        dst[:n] = torch.as_tensor(np.asarray(src), device=device).to(dst.dtype)
+        with profiling.sync("table.copy"):
+            dst[:n] = torch.as_tensor(np.asarray(src), device=device).to(dst.dtype)
 
     put(t.coord, coord)
     put(t.normal, normal)

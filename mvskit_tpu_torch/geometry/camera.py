@@ -13,6 +13,8 @@ from typing import NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils import profiling
+
 # Sentinel returned by project() for points behind the camera
 # (reference camera.cpp:313-315).
 BEHIND = -65535.0
@@ -180,9 +182,10 @@ def make_camera_set(projections: np.ndarray, device) -> CameraSet:
     ipscale_cam = np.where(ipscale_cam == 0.0, 1.0, ipscale_cam)
 
     def conv(a):
-        return torch.as_tensor(
-            np.asarray(a, dtype=np.float32), device=device
-        )
+        with profiling.sync("cameras.copy"):
+            return torch.as_tensor(
+                np.asarray(a, dtype=np.float32), device=device
+            )
 
     return CameraSet(
         P=conv(P),

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..geometry.camera import CameraSet, load_camera_set, make_camera_set
+from ..utils import profiling
 from . import decode
 
 # ----------------------------------------------------------------------
@@ -323,18 +324,21 @@ def scene_from_planes(
     dev = torch.device(device)
 
     def i32(a):
-        return torch.tensor(np.asarray(a, dtype=np.int32), device=dev)
+        with profiling.sync("scene.copy"):
+            return torch.tensor(np.asarray(a, dtype=np.int32), device=dev)
+
+    def f32(a):
+        with profiling.sync("scene.copy"):
+            return torch.tensor(np.asarray(a, np.float32), device=dev)
 
     if planes_luma_quad is None:
         planes_luma_quad = pack_luma_quad(
             np.asarray(planes, np.float32), offsets, widths, heights)
     return Scene(
-        planes=torch.tensor(np.asarray(planes, np.float32), device=dev),
+        planes=f32(planes),
         planes_packed=i32(planes_packed),
         planes_luma_quad=i32(planes_luma_quad),
-        masks=None if masks is None else torch.tensor(
-            np.asarray(masks, np.float32), device=dev
-        ),
+        masks=None if masks is None else f32(masks),
         cams=cams,
         lvl_offsets=i32(offsets),
         lvl_widths=i32(widths),
@@ -422,36 +426,42 @@ def load_scene(
       image/%04d%04d.{jpg,ppm,png,tiff}  view x illumination
       txt/%08d.txt                       CONTOUR camera files
       mask/%08d.{pgm,pbm}                optional masks
+
+    The recorder sees span ``load``, and in it ``decode`` (the files)
+    and ``pyramid`` (the pyramids built and moved to the device).
     """
-    n = len(image_ids)
-    cam_paths = [os.path.join(prefix, "txt", f"{i:08d}.txt") for i in range(n)]
-    cams = load_camera_set(cam_paths, device)
+    with profiling.span("load"):
+        n = len(image_ids)
+        cam_paths = [os.path.join(prefix, "txt", f"{i:08d}.txt") for i in range(n)]
+        cams = load_camera_set(cam_paths, device)
 
-    images = []
-    masks = []
-    for i in range(n):
-        illums = []
-        for il in range(nillums):
-            base = os.path.join(prefix, "image", f"{i:04d}{il:04d}")
-            path = None
-            for ext in (".jpg", ".jpeg", ".ppm", ".png", ".tiff"):
-                if os.path.exists(base + ext):
-                    path = base + ext
-                    break
-            if path is None:
-                raise FileNotFoundError(f"no image for view {i} illum {il}: {base}.*")
-            illums.append(decode.load_rgb(path))
-        images.append(np.stack(illums))
-        masks.append(decode.load_mask(os.path.join(prefix, "mask", f"{i:08d}")))
+        images = []
+        masks = []
+        with profiling.span("decode"):
+            for i in range(n):
+                illums = []
+                for il in range(nillums):
+                    base = os.path.join(prefix, "image", f"{i:04d}{il:04d}")
+                    path = None
+                    for ext in (".jpg", ".jpeg", ".ppm", ".png", ".tiff"):
+                        if os.path.exists(base + ext):
+                            path = base + ext
+                            break
+                    if path is None:
+                        raise FileNotFoundError(f"no image for view {i} illum {il}: {base}.*")
+                    illums.append(decode.load_rgb(path))
+                images.append(np.stack(illums))
+                masks.append(decode.load_mask(os.path.join(prefix, "mask", f"{i:08d}")))
 
-    scene = scene_from_arrays(
-        projections=None, images=images, masks=masks,
-        max_level=max_level, cams=cams, device=device,
-    )
-    if use_vis_data:
-        covis = load_visdata(os.path.join(prefix, "vis.dat"), image_ids)
-        if covis is not None:
-            scene = dataclasses.replace(
-                scene, covis=torch.as_tensor(covis, device=scene.device)
+        with profiling.span("pyramid"):
+            scene = scene_from_arrays(
+                projections=None, images=images, masks=masks,
+                max_level=max_level, cams=cams, device=device,
             )
-    return scene
+        if use_vis_data:
+            covis = load_visdata(os.path.join(prefix, "vis.dat"), image_ids)
+            if covis is not None:
+                with profiling.sync("scene.copy"):
+                    covis = torch.as_tensor(covis, device=scene.device)
+                scene = dataclasses.replace(scene, covis=covis)
+        return scene

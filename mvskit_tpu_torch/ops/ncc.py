@@ -23,6 +23,7 @@ import torch
 
 from ..geometry import camera as cam
 from ..image.scene import Scene
+from ..utils import profiling
 from . import cuda_ncc
 
 BIG = float(2**30)
@@ -282,17 +283,16 @@ def sample_windows_raw(
 
 
 # per view shard (its index on the view axis) and launch form: the
-# sampler calls of the view-sharded path and their windows; and the host
-# syncs it made (one per sampler call, for the shards' window counts)
+# sampler calls of the view-sharded path and their windows (its host
+# syncs, one per sampler call for the shards' window counts, are the
+# recorder's sync spans "sampler.shard_counts", utils/profiling.py)
 SHARD_CALLS: collections.Counter = collections.Counter()
 SHARD_WINDOWS: collections.Counter = collections.Counter()
-SHARD_SYNCS = collections.Counter()
 
 
 def reset_shard_stats() -> None:
     SHARD_CALLS.clear()
     SHARD_WINDOWS.clear()
-    SHARD_SYNCS.clear()
 
 
 def _sample_windows_view_sharded(
@@ -345,8 +345,8 @@ def _sample_windows_view_sharded(
         mixed = (g != g[:, :1]).any().reshape(1)
     else:
         mixed = torch.zeros(1, dtype=counts.dtype, device=counts.device)
-    *counts, mixed = torch.cat([counts, mixed.to(counts.dtype)]).tolist()
-    SHARD_SYNCS["sampler"] += 1
+    with profiling.sync("sampler.shard_counts"):
+        *counts, mixed = torch.cat([counts, mixed.to(counts.dtype)]).tolist()
     if mixed:
         raise AssertionError("a candidate group spans two view shards")
     C = 1 if luma else 3

@@ -9,10 +9,13 @@ is also the plain version of the CUDA window sampler
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from ..geometry import camera as cam
 from ..image.scene import Scene
+from ..utils import profiling
 
 # float -> int32 conversion saturates at these bounds (as the CUDA
 # kernel's __float2int_rz does); in-range values are unaffected
@@ -20,10 +23,24 @@ _I32_LO = -2147483520.0
 _I32_HI = 2147483520.0
 
 
+def _no_sync(site: str):
+    return contextlib.nullcontext()
+
+
 def _level_meta(scene: Scene, level):
-    level = torch.as_tensor(level, dtype=torch.int32, device=scene.device)
+    # a level given as a host int is copied to the device, and each read
+    # below by a 0-d index is then a host sync too
+    sync = profiling.sync if isinstance(level, int) else _no_sync
+    with sync("sampling.level"):
+        level = torch.as_tensor(level, dtype=torch.int32, device=scene.device)
     lv = level.long()
-    return scene.lvl_offsets[lv], scene.lvl_widths[lv], scene.lvl_heights[lv]
+    with sync("sampling.level_offset"):
+        off = scene.lvl_offsets[lv]
+    with sync("sampling.level_width"):
+        w = scene.lvl_widths[lv]
+    with sync("sampling.level_height"):
+        h = scene.lvl_heights[lv]
+    return off, w, h
 
 
 def _trunc_i32(x):

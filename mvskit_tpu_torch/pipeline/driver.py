@@ -30,6 +30,7 @@ from ..io import patch_io, ply
 from ..ops import sampling
 from ..parallel import shard as sh
 from ..parallel import tiles
+from ..utils import profiling
 from . import expand as ex
 from . import filters as fl
 from . import propagate as pr
@@ -202,11 +203,16 @@ class PMMVS:
             torch.cuda.synchronize(self.device)
 
     def _stage(self, name: str, fn, **extra):
-        """Run one stage, timed on the host clock up to a device sync."""
-        self._sync()
-        t0 = time.time()
-        out = fn()
-        self._sync()
+        """Run one stage, timed on the host clock up to a device sync,
+        inside the recorder's span of the stage (`name` without its
+        ``[iteration]``, which becomes the span's ``iteration``)."""
+        base, _, it = name.partition("[")
+        attrs = {"iteration": int(it[:-1])} if it else {}
+        with profiling.span(base, **attrs):
+            self._sync()
+            t0 = time.time()
+            out = fn()
+            self._sync()
         rec = {"stage": name, "seconds": time.time() - t0, **extra}
         self.report["stages"].append(rec)
         return out, rec
@@ -252,22 +258,24 @@ class PMMVS:
                           use_depth=self.depth > 0,
                           quad_threshold=self.cfg.quad_threshold, row_limit=rl,
                           dp_devices=self._dp_devices)
-            if pmvs:
-                self.table, state, stats = ex.expand_round(
-                    self.scene, self.table, state, self.noise.expand_round(), p,
-                    count_threshold=self.count_threshold1, depth=self.depth,
-                    **common,
-                )
-            elif self.cfg.mesh_tile > 1:
-                self.table, stats = tiles.tiled_propagate_round(
-                    self.mesh, self.scene, self.table, self.noise.round(), p,
-                    direction, **common,
-                )
-            else:
-                self.table, stats = pr.propagate_round(
-                    self.scene, self.table, self.noise.round(), p, direction,
-                    **common,
-                )
+            with profiling.span("round"):
+                if pmvs:
+                    self.table, state, stats = ex.expand_round(
+                        self.scene, self.table, state, self.noise.expand_round(), p,
+                        count_threshold=self.count_threshold1, depth=self.depth,
+                        **common,
+                    )
+                elif self.cfg.mesh_tile > 1:
+                    self.table, stats = tiles.tiled_propagate_round(
+                        self.mesh, self.scene, self.table, self.noise.round(), p,
+                        direction, **common,
+                    )
+                else:
+                    self.table, stats = pr.propagate_round(
+                        self.scene, self.table, self.noise.round(), p, direction,
+                        **common,
+                    )
+                profiling.note(hypotheses=stats.total, passed=stats.passed)
             if self._row_bound is not None:
                 self._row_bound = min(N, self._row_bound + hypotheses)
             total = pr.RoundStats(*(a + b for a, b in zip(total, stats)))
@@ -286,7 +294,8 @@ class PMMVS:
         cfg = self.cfg
         t = pt.compact_table(self.table)
         N = t.capacity
-        hwm = int(t.alive.sum()) - 1
+        with profiling.sync("filter.live_rows"):
+            hwm = int(t.alive.sum()) - 1
         self._row_bound = hwm + 1
         R = pow2_limit(max(hwm + 1, 1), N)
         t, stats = fl.run_filters(
@@ -368,41 +377,55 @@ class PMMVS:
     def collect(self, table: Optional[pt.PatchTable] = None) -> Dict[str, np.ndarray]:
         """Alive patches on the host."""
         t = self.table if table is None else table
-        idx = torch.nonzero(t.alive).flatten()
-        return {
-            k: getattr(t, k)[idx].cpu().numpy()
-            for k in ("coord", "normal", "ncc", "dscale", "ascale",
-                      "images", "vimages")
-        }
+        with profiling.sync("collect.rows"):
+            idx = torch.nonzero(t.alive).flatten()
+        out = {}
+        for k in ("coord", "normal", "ncc", "dscale", "ascale", "images", "vimages"):
+            with profiling.sync("collect.copy"):
+                out[k] = getattr(t, k)[idx].cpu().numpy()
+        return out
 
     def patch_colors(self, coord: np.ndarray, images: np.ndarray) -> np.ndarray:
         """Mean color over a patch's views (patch_manager.cpp:566-587)."""
-        c = torch.as_tensor(np.asarray(coord, np.float32), device=self.device)
-        im = torch.as_tensor(np.asarray(images, np.int32), device=self.device)
-        return self._mean_colors(c, im).cpu().numpy()
+        with profiling.sync("colors.coord"):
+            c = torch.as_tensor(np.asarray(coord, np.float32), device=self.device)
+        with profiling.sync("colors.images"):
+            im = torch.as_tensor(np.asarray(images, np.int32), device=self.device)
+        rgb = self._mean_colors(c, im)
+        with profiling.sync("colors.copy"):
+            return rgb.cpu().numpy()
 
     def join_snapshots(self) -> None:
         """Barrier for the snapshot writer thread; re-raises any
         snapshot I/O error."""
         futs, self._snap_futures = self._snap_futures, []
-        for f in futs:
-            f.result()
+        with profiling.span("join"):
+            for f in futs:
+                f.result()
 
     def write_patches(self, path_prefix: str, export_ply: bool = True,
                       export_patch: bool = False, binary_ply: bool = False,
                       wait: bool = True) -> None:
         """PatchManager::writePatches (patch_manager.cpp:499-540): the
         device work happens here; with wait=False the encoding and disk
-        write run in the writer thread."""
-        data = self.collect()
-        rgb = self.patch_colors(data["coord"], data["images"]) if export_ply else None
-        image_ids = np.asarray(self.cfg.images, dtype=np.int64)
-        job = functools.partial(_encode_and_write, path_prefix, data, rgb,
-                                image_ids, export_ply, export_patch, binary_ply)
-        if wait:
-            job()
-        else:
-            self._snap_futures.append(self._snap_pool.submit(job))
+        write run in the writer thread (span ``snapshot`` there, ``encode``
+        here)."""
+        with profiling.span("write"):
+            with profiling.span("collect"):
+                data = self.collect()
+            rgb = None
+            if export_ply:
+                with profiling.span("colors"):
+                    rgb = self.patch_colors(data["coord"], data["images"])
+            image_ids = np.asarray(self.cfg.images, dtype=np.int64)
+            job = functools.partial(_encode_and_write, path_prefix, data, rgb,
+                                    image_ids, export_ply, export_patch, binary_ply)
+            if wait:
+                with profiling.span("encode"):
+                    job()
+            else:
+                self._snap_futures.append(
+                    self._snap_pool.submit(profiling.carry(job, "snapshot")))
 
     def close(self) -> None:
         """Finish pending snapshots and stop the writer thread."""

@@ -234,8 +234,4 @@ def expand_round(
     counts = update_counts(scene, state.counts, out.coord, out.images,
                            out.vimages, out.ok, p.level, p.csize)
     table = pr.insert_patches(table, out, dp_devices)
-    stats = pr.RoundStats(
-        total=int(ok.sum()), fail0=int(out.fail0.sum()),
-        fail1=int(out.fail1.sum()), passed=int(out.ok.sum()),
-    )
-    return table, ExpandState(counts), stats
+    return table, ExpandState(counts), pr._round_stats(ok, out)

@@ -32,6 +32,7 @@ from ..geometry import camera as cam
 from ..image.scene import Scene
 from ..ops.ncc import compute_units
 from ..parallel import shard as sh
+from ..utils import profiling
 from . import views as vw
 
 INF = float(1e30)
@@ -192,7 +193,9 @@ def filter_outside(scene, grid, table, level, csize, ncc_threshold,
                           neighbor_threshold1, row_limit=row_limit,
                           dp_devices=dp_devices)
     kill = table.alive & (gains < 0.0)
-    return table._replace(alive=table.alive & ~kill), int(kill.sum())
+    with profiling.sync("outside.kills"):
+        n = int(kill.sum())
+    return table._replace(alive=table.alive & ~kill), n
 
 
 # ----------------------------------------------------------------------
@@ -222,12 +225,14 @@ def filter_exact(
             new_images[s:e] = ni.to(home)
             enough[s:e] = en.to(home)
     killed = table.alive & ~enough
+    with profiling.sync("exact.kills"):
+        n = int(killed.sum())
     return (
         table._replace(
             images=torch.where(table.alive.unsqueeze(1), new_images, table.images),
             alive=table.alive & enough,
         ),
-        int(killed.sum()),
+        n,
     )
 
 
@@ -452,7 +457,9 @@ def filter_neighbor_rows(
     kill = table.alive[rows_all] & reject
     alive = table.alive.clone()
     alive[rows_all] = table.alive[rows_all] & ~reject
-    return table._replace(alive=alive), int(kill.sum())
+    with profiling.sync("neighbor.kills"):
+        n = int(kill.sum())
+    return table._replace(alive=alive), n
 
 
 def filter_neighbor(
@@ -548,12 +555,15 @@ def filter_small_groups(
 
     sizes = torch.zeros(N + 1, dtype=torch.int64, device=dev)
     sizes.index_add_(0, label.clamp(0, N), alive_n.to(torch.int64))
-    psize = int(table.alive.sum())
+    with profiling.sync("groups.alive"):
+        psize = int(table.alive.sum())
     threshold = max(20, psize // 10000)
     small = torch.zeros(cap, dtype=torch.bool, device=dev)
     small[:N] = sizes[label.clamp(0, N)] < threshold
     kill = table.alive & small
-    return table._replace(alive=table.alive & ~kill), int(kill.sum())
+    with profiling.sync("groups.kills"):
+        n = int(kill.sum())
+    return table._replace(alive=table.alive & ~kill), n
 
 
 # ----------------------------------------------------------------------
@@ -604,30 +614,35 @@ def run_filters(
     dp = dict(dp_devices=dp_devices)
 
     def rb(t, additive):
-        return rebuild(scene, t, level, csize, cell_capacity,
-                       neighbor_threshold, additive=additive, row_limit=R, **dp)
+        with profiling.span("rebuild"):
+            return rebuild(scene, t, level, csize, cell_capacity,
+                           neighbor_threshold, additive=additive, row_limit=R, **dp)
 
     table, grid = rb(table, False)
-    table, n_out = filter_outside(scene, grid, table, level, csize,
-                                  ncc_threshold, neighbor_threshold1,
-                                  row_limit=R, **dp)
+    with profiling.span("outside"):
+        table, n_out = filter_outside(scene, grid, table, level, csize,
+                                      ncc_threshold, neighbor_threshold1,
+                                      row_limit=R, **dp)
     table, grid = rb(table, True)
-    table, n_exact = filter_exact(scene, grid, table, level, csize, wsize,
-                                  min_image_num, neighbor_threshold1,
-                                  angle_threshold1, row_limit=R, **dp)
+    with profiling.span("exact"):
+        table, n_exact = filter_exact(scene, grid, table, level, csize, wsize,
+                                      min_image_num, neighbor_threshold1,
+                                      angle_threshold1, row_limit=R, **dp)
     table, grid = rb(table, True)
     rows = table.capacity if R is None else min(R, table.capacity)
     if neighbor_rows is not None:
         rows = min(rows, neighbor_rows)
-    table, n_nb = filter_neighbor_rows(
-        scene, grid, table, 0, rows, level, csize, tau, quad_threshold,
-        neighbor_threshold, max_neighbors=neighbor_capacity,
-        chunk=neighbor_chunk, cand_cap=neighbor_cand_cap, **dp,
-    )
+    with profiling.span("neighbor", rows=rows):
+        table, n_nb = filter_neighbor_rows(
+            scene, grid, table, 0, rows, level, csize, tau, quad_threshold,
+            neighbor_threshold, max_neighbors=neighbor_capacity,
+            chunk=neighbor_chunk, cand_cap=neighbor_cand_cap, **dp,
+        )
     table, grid = rb(table, True)
-    table, n_grp = filter_small_groups(scene, grid, table, level, csize,
-                                       neighbor_threshold2,
-                                       iters=small_group_iters, row_limit=R, **dp)
+    with profiling.span("groups"):
+        table, n_grp = filter_small_groups(scene, grid, table, level, csize,
+                                           neighbor_threshold2,
+                                           iters=small_group_iters, row_limit=R, **dp)
     table, _ = rb(table, True)
     return table, FilterStats(n_out, n_exact, n_nb, n_grp)
 

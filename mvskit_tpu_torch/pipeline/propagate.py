@@ -29,6 +29,7 @@ from ..image.scene import Scene
 from ..ops import cuda_ncc
 from ..ops import ncc as nccops
 from ..parallel import shard as sh
+from ..utils import profiling
 from . import refine as rf
 from . import views as vw
 
@@ -272,60 +273,65 @@ def run_gauntlet(scene, grid, table, coord, normal, images, ok_in, deltas,
                  use_depth: bool, quad_threshold=2.5) -> GauntletOut:
     """preProcess -> refinePatch -> postProcess for a hypothesis batch
     (propagate.cpp:182-196), plus Optim::check once depth >= 2."""
-    pre = vw.pre_process(
-        scene, coord, normal, images,
-        level=p.level, wsize=p.wsize, tau=p.tau,
-        min_image_num=p.min_image_num,
-        ncc_threshold_before=ncc_threshold_before,
-        angle_threshold0=p.angle_threshold0,
-        angle_threshold1=p.angle_threshold1,
-        max_angle_threshold=p.max_angle_threshold,
-    )
+    with profiling.span("pre"):
+        pre = vw.pre_process(
+            scene, coord, normal, images,
+            level=p.level, wsize=p.wsize, tau=p.tau,
+            min_image_num=p.min_image_num,
+            ncc_threshold_before=ncc_threshold_before,
+            angle_threshold0=p.angle_threshold0,
+            angle_threshold1=p.angle_threshold1,
+            max_angle_threshold=p.max_angle_threshold,
+        )
     fail0 = ok_in & ~pre.ok
 
-    res = rf.refine_batch(
-        scene, coord, normal, pre.images, pre.dscale, deltas,
-        level=p.level, wsize=p.wsize, tau=p.tau,
-        min_image_num=p.min_image_num,
-        angle_threshold1=p.angle_threshold1, ascale=p.ascale,
-        rounds=p.refine_rounds, n_cands=p.refine_cands,
-        shrink=p.refine_shrink,
-        init_depth_radius=p.refine_depth_radius,
-        init_angle_radius=p.refine_angle_radius,
-        grad_steps=p.grad_steps, grad_lr=p.grad_lr,
-        group_dma=p.group_dma, luma=p.luma_refine, rgb_tail=p.rgb_tail,
-        n_illums=p.n_illums,
-    )
+    with profiling.span("refine"):
+        res = rf.refine_batch(
+            scene, coord, normal, pre.images, pre.dscale, deltas,
+            level=p.level, wsize=p.wsize, tau=p.tau,
+            min_image_num=p.min_image_num,
+            angle_threshold1=p.angle_threshold1, ascale=p.ascale,
+            rounds=p.refine_rounds, n_cands=p.refine_cands,
+            shrink=p.refine_shrink,
+            init_depth_radius=p.refine_depth_radius,
+            init_angle_radius=p.refine_angle_radius,
+            grad_steps=p.grad_steps, grad_lr=p.grad_lr,
+            group_dma=p.group_dma, luma=p.luma_refine, rgb_tail=p.rgb_tail,
+            n_illums=p.n_illums,
+        )
 
-    post_images, post_ok, _ = vw.post_process_core(
-        scene, res.coord, res.normal, pre.images,
-        level=p.level, wsize=p.wsize, tau=p.tau,
-        min_image_num=p.min_image_num, ncc_threshold=ncc_threshold,
-        angle_threshold0=p.angle_threshold0,
-        angle_threshold1=p.angle_threshold1,
-        n_illums=p.n_illums,
-    )
+    with profiling.span("post"):
+        post_images, post_ok, _ = vw.post_process_core(
+            scene, res.coord, res.normal, pre.images,
+            level=p.level, wsize=p.wsize, tau=p.tau,
+            min_image_num=p.min_image_num, ncc_threshold=ncc_threshold,
+            angle_threshold0=p.angle_threshold0,
+            angle_threshold1=p.angle_threshold1,
+            n_illums=p.n_illums,
+        )
     ok = ok_in & pre.ok & post_ok
     fail1 = ok_in & pre.ok & ~post_ok
 
-    vimages = gridmod.visible_extra_views(
-        scene, grid, table, res.coord, res.normal, post_images,
-        torch.full_like(post_images, -1), ok,
-        p.level, p.csize, p.neighbor_threshold, use_depth,
-    )
+    with profiling.span("views"):
+        vimages = gridmod.visible_extra_views(
+            scene, grid, table, res.coord, res.normal, post_images,
+            torch.full_like(post_images, -1), ok,
+            p.level, p.csize, p.neighbor_threshold, use_depth,
+        )
 
     if p.depth2_check:
         from . import filters as fl
 
-        reject = fl.check_batch(
-            scene, grid, table, res.coord, res.normal, pre.dscale,
-            res.ncc, post_images, vimages,
-            level=p.level, csize=p.csize, tau=p.tau,
-            ncc_threshold=ncc_threshold, quad_threshold=quad_threshold,
-            neighbor_threshold=p.neighbor_threshold,
-            neighbor_threshold1=p.neighbor_threshold1,
-            max_neighbors=p.neighbor_capacity, cand_cap=p.neighbor_cand_cap,
-        )
+        with profiling.span("check"):
+            reject = fl.check_batch(
+                scene, grid, table, res.coord, res.normal, pre.dscale,
+                res.ncc, post_images, vimages,
+                level=p.level, csize=p.csize, tau=p.tau,
+                ncc_threshold=ncc_threshold, quad_threshold=quad_threshold,
+                neighbor_threshold=p.neighbor_threshold,
+                neighbor_threshold1=p.neighbor_threshold1,
+                max_neighbors=p.neighbor_capacity, cand_cap=p.neighbor_cand_cap,
+            )
         fail1 = fail1 | (ok & reject)
         ok = ok & ~reject
 
@@ -404,12 +410,14 @@ def _gauntlet_chunked(scene, grid, table, coord, normal, images, ok,
     outputs come back to the home device in chunk order. Each chunk's
     hypotheses are computed alone, as the unsharded run computes them,
     so the result is the unsharded one bit for bit. ``shard.DP_ROWS``
-    counts the hypotheses each dp device took."""
+    counts the hypotheses each dp device took. The recorder sees a span
+    ``chunk`` (``rows``) per chunk and a sync at every host read."""
     H = coord.shape[0]
     C = min(p.chunk, H)
     n_chunks = (H + C - 1) // C
     dev = coord.device
-    live = torch.nonzero(ok).flatten()
+    with profiling.sync("gauntlet.live"):
+        live = torch.nonzero(ok).flatten()
     out = GauntletOut(
         coord=torch.zeros_like(coord), normal=torch.zeros_like(normal),
         images=torch.full_like(images, -1), vimages=torch.full_like(images, -1),
@@ -423,7 +431,11 @@ def _gauntlet_chunked(scene, grid, table, coord, normal, images, ok,
     if live.numel() == 0:
         return out
     cache: Dict[int, torch.Tensor] = {}
-    live_chunks = torch.unique(live // C).tolist()
+    with profiling.sync("gauntlet.chunk_ids"):
+        live_chunks = torch.unique(live // C)
+    with profiling.sync("gauntlet.chunk_list"):
+        live_chunks = live_chunks.tolist()
+    profiling.note(chunks=(live.numel() + C - 1) // C)
     for ch in live_chunks:
         cache[ch] = noise.refine(ch, n_chunks, p.refine_rounds, C,
                                  p.refine_cands).to(dev)
@@ -431,23 +443,31 @@ def _gauntlet_chunked(scene, grid, table, coord, normal, images, ok,
     state = sh.replicas(devices, dev, scene, grid, table)
     for i, s in enumerate(range(0, live.numel(), C)):
         rows = live[s:s + C]
-        ch_of, row_of = rows // C, rows % C
-        deltas = torch.empty((p.refine_rounds, rows.numel(), p.refine_cands, 3),
-                             dtype=torch.float32, device=dev)
-        for ch in torch.unique(ch_of).tolist():
-            m = ch_of == ch
-            deltas[:, m] = cache[ch][:, row_of[m]]
-        d = devices[i % len(devices)]
-        if dp_devices:
-            sh.DP_ROWS["gauntlet", i % len(devices)] += rows.numel()
-        scn, grd, tbl = state[d]
-        res = run_gauntlet(
-            scn, grd, tbl, coord[rows].to(d), normal[rows].to(d),
-            images[rows].to(d), ok[rows].to(d), deltas.to(d), p, ncc_threshold,
-            ncc_threshold_before, use_depth, quad_threshold,
-        )
-        for dst, src in zip(out, res):
-            dst[rows] = src.to(dev)
+        with profiling.span("chunk", rows=rows.numel()):
+            ch_of, row_of = rows // C, rows % C
+            deltas = torch.empty((p.refine_rounds, rows.numel(), p.refine_cands, 3),
+                                 dtype=torch.float32, device=dev)
+            with profiling.sync("chunk.noise_ids"):
+                chs = torch.unique(ch_of)
+            with profiling.sync("chunk.noise_list"):
+                chs = chs.tolist()
+            for ch in chs:
+                m = ch_of == ch
+                with profiling.sync("chunk.noise_rows"):
+                    src = cache[ch][:, row_of[m]]
+                with profiling.sync("chunk.noise_put"):
+                    deltas[:, m] = src
+            d = devices[i % len(devices)]
+            if dp_devices:
+                sh.DP_ROWS["gauntlet", i % len(devices)] += rows.numel()
+            scn, grd, tbl = state[d]
+            res = run_gauntlet(
+                scn, grd, tbl, coord[rows].to(d), normal[rows].to(d),
+                images[rows].to(d), ok[rows].to(d), deltas.to(d), p, ncc_threshold,
+                ncc_threshold_before, use_depth, quad_threshold,
+            )
+            for dst, src in zip(out, res):
+                dst[rows] = src.to(dev)
     return out
 
 
@@ -481,8 +501,9 @@ def propagate_round(
     # (propagate.cpp:94-98 removePatch)
     table = table._replace(alive=table.alive & ~grid.evicted)
 
-    donors = select_donors(scene, grid, table, p.donor_budget, p.donor_policy,
-                           dp_devices=dp_devices)
+    with profiling.span("donors"):
+        donors = select_donors(scene, grid, table, p.donor_budget, p.donor_policy,
+                               dp_devices=dp_devices)
     return round_from_donors(
         scene, table, grid, donors, (None, None), noise, p, direction,
         ncc_threshold, ncc_threshold_before, use_depth, quad_threshold,
@@ -497,24 +518,36 @@ def round_from_donors(scene, table, grid, donors, gates, noise: RoundNoise,
     the x- and y-neighbor cells (``gates`` gives each axis's full-cell
     gate as (gate_full, gate_worst_ncc), or None to read `grid`), the
     gauntlet, insertion and the round's counts."""
-    parts = []
-    for axis, gate in zip((0, 1), gates):
-        gate_full, gate_worst = (None, None) if gate is None else gate
-        parts.append(generate_hypotheses(
-            scene, table, grid, *donors, axis, direction,
-            noise.jitter(axis, p.donor_budget).to(table.coord.device), p,
-            gate_full=gate_full, gate_worst_ncc=gate_worst, dp_devices=dp_devices))
-    coord, normal, images, _, ok = (
-        torch.cat([pt[i] for pt in parts]) for i in range(5)
-    )
-    out = _gauntlet_chunked(
-        scene, grid, table, coord, normal, images, ok, noise, p,
-        ncc_threshold, ncc_threshold_before, use_depth, quad_threshold,
-        dp_devices,
-    )
-    table = insert_patches(table, out, dp_devices)
-    stats = RoundStats(
-        total=int(ok.sum()), fail0=int(out.fail0.sum()),
-        fail1=int(out.fail1.sum()), passed=int(out.ok.sum()),
-    )
-    return table, stats
+    with profiling.span("hypotheses"):
+        parts = []
+        for axis, gate in zip((0, 1), gates):
+            gate_full, gate_worst = (None, None) if gate is None else gate
+            parts.append(generate_hypotheses(
+                scene, table, grid, *donors, axis, direction,
+                noise.jitter(axis, p.donor_budget).to(table.coord.device), p,
+                gate_full=gate_full, gate_worst_ncc=gate_worst, dp_devices=dp_devices))
+        coord, normal, images, _, ok = (
+            torch.cat([pt[i] for pt in parts]) for i in range(5)
+        )
+    with profiling.span("gauntlet"):
+        out = _gauntlet_chunked(
+            scene, grid, table, coord, normal, images, ok, noise, p,
+            ncc_threshold, ncc_threshold_before, use_depth, quad_threshold,
+            dp_devices,
+        )
+    with profiling.span("insert"):
+        table = insert_patches(table, out, dp_devices)
+    return table, _round_stats(ok, out)
+
+
+def _round_stats(ok, out: GauntletOut) -> RoundStats:
+    """A round's counts, four host reads."""
+    with profiling.sync("round.total"):
+        total = int(ok.sum())
+    with profiling.sync("round.fail0"):
+        fail0 = int(out.fail0.sum())
+    with profiling.sync("round.fail1"):
+        fail1 = int(out.fail1.sum())
+    with profiling.sync("round.passed"):
+        passed = int(out.ok.sum())
+    return RoundStats(total=total, fail0=fail0, fail1=fail1, passed=passed)

@@ -184,10 +184,11 @@ def refine_batch(
 
     best_p = p0
     best_c = torch.full((B,), float("inf"), dtype=torch.float32, device=dev)
-    radius = torch.tensor(
-        [init_depth_radius, init_angle_radius, init_angle_radius],
-        dtype=torch.float32, device=dev,
-    )
+    with profiling.sync("refine.radius"):
+        radius = torch.tensor(
+            [init_depth_radius, init_angle_radius, init_angle_radius],
+            dtype=torch.float32, device=dev,
+        )
     if rounds > 0 and deltas is None:
         if generator is None:
             raise ValueError("refine_batch needs deltas or a generator")

@@ -22,6 +22,7 @@ from ..core import patches as pt
 from ..image.scene import Scene
 from ..io import patch_io, ply
 from ..ops import ncc as nccops
+from ..utils import profiling
 from . import views as vw
 
 
@@ -165,7 +166,8 @@ def seed_from_plys(scene: Scene, cfg: MVSConfig, prefix: str,
     coord = np.concatenate([pts, np.ones((n_seeds, 1))], axis=1).astype(np.float32)
 
     w0, h0 = scene.width(0), scene.height(0)
-    P_host = scene.cams.P.detach().cpu().numpy().astype(np.float64)
+    with profiling.sync("seed.cameras"):
+        P_host = scene.cams.P.detach().cpu().numpy().astype(np.float64)
     nmaps = np.zeros((scene.n_images, h0, w0, 3), dtype=np.float32)
     have_map = np.zeros(scene.n_images, dtype=bool)
     for i in range(scene.n_images):
@@ -185,9 +187,10 @@ def seed_from_plys(scene: Scene, cfg: MVSConfig, prefix: str,
 
     masks0 = None
     if scene.masks is not None:
-        masks0 = scene.masks[:, : w0 * h0].cpu().numpy().reshape(
-            scene.n_images, h0, w0
-        )
+        with profiling.sync("seed.masks"):
+            masks0 = scene.masks[:, : w0 * h0].cpu().numpy().reshape(
+                scene.n_images, h0, w0
+            )
 
     parts = []
     for off in range(0, n_seeds, chunk):
@@ -204,12 +207,14 @@ def seed_from_plys(scene: Scene, cfg: MVSConfig, prefix: str,
     # free-choice reference view ordering (sortImages isFixed=0,
     # depth_normal_init.cpp:78)
     dev = scene.device
-    images_t = vw.sort_images(
-        scene, torch.as_tensor(coord_a, device=dev),
-        torch.as_tensor(normal_a, device=dev),
-        torch.as_tensor(images, device=dev), cfg.level, is_fixed=False,
-    )
-    return finalize_seeds(scene, cfg, coord_a, normal_a, images_t.cpu().numpy())
+    on_dev = []
+    for a in (coord_a, normal_a, images):
+        with profiling.sync("seed.copy"):
+            on_dev.append(torch.as_tensor(a, device=dev))
+    images_t = vw.sort_images(scene, *on_dev, cfg.level, is_fixed=False)
+    with profiling.sync("seed.images"):
+        images_host = images_t.cpu().numpy()
+    return finalize_seeds(scene, cfg, coord_a, normal_a, images_host)
 
 
 def seed(scene: Scene, cfg: MVSConfig, prefix: str, resume_iter: int = 0) -> pt.PatchTable:

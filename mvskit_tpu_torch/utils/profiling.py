@@ -5,17 +5,22 @@ The reference's observability is wall-clock prints and pass/fail
 counters (reference propagate.cpp:55-63, filter.cpp:90-96,
 pmmvps.cpp:112-113). Here: a phase timer that waits for the device
 before it stops the clock, structured counters, a ``torch.profiler``
-trace written as a Chrome trace, and ``polish_stats()``, which records
-what the refinement's gradient polish did while it is open.
+trace written as a Chrome trace, ``polish_stats()``, which records
+what the refinement's gradient polish did while it is open, and
+``tracing()``, which records the program's spans and host syncs while
+it is open (``span``, ``sync``, ``note``, ``carry``; a ``Trace``).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
 import json
 import os
+import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -165,3 +170,292 @@ def polish_stats():
         yield POLISH
     finally:
         POLISH = prev
+
+
+# ----------------------------------------------------------------------
+# spans and host syncs
+# ----------------------------------------------------------------------
+
+class Span:
+    """One closed span: its id, name, kind (``span``, or ``sync`` around a
+    call that blocks the host on the device), the id of the span it ran
+    inside (None at the top; for a job handed to another thread, the
+    span that handed it over), the thread's name, its start and end in
+    nanoseconds on the Unix clock that ``torch.profiler``'s kineto events
+    stamp (``start_ns()``), and attributes that were host integers
+    already."""
+
+    __slots__ = ("id", "name", "kind", "parent", "thread", "start_ns", "end_ns", "attrs")
+
+    def __init__(self, id, name, kind, parent, thread, attrs):
+        self.id, self.name, self.kind, self.parent = id, name, kind, parent
+        self.thread, self.attrs = thread, attrs
+        self.start_ns = self.end_ns = 0
+
+    @property
+    def seconds(self) -> float:
+        return (self.end_ns - self.start_ns) / 1e9
+
+
+class _Open:
+    """A span while it is open: pushed on its thread's stack at enter,
+    stamped and recorded at exit. Neither end touches the device."""
+
+    __slots__ = ("trace", "span")
+
+    def __init__(self, trace: "Trace", span: Span):
+        self.trace, self.span = trace, span
+
+    def __enter__(self) -> Span:
+        stack = self.trace._stack()
+        if self.span.parent is None and stack:
+            self.span.parent = stack[-1].id
+        stack.append(self.span)
+        self.span.start_ns = time.perf_counter_ns()
+        return self.span
+
+    def __exit__(self, *exc) -> None:
+        s = self.span
+        end = time.perf_counter_ns()
+        off = self.trace.offset_ns
+        s.start_ns, s.end_ns = s.start_ns + off, end + off
+        self.trace._stack().pop()
+        self.trace.spans.append(s)
+
+
+def _union(intervals: Iterable[Tuple[int, int]]) -> int:
+    """Length of the union of [start, end) intervals."""
+    total, end = 0, None
+    for s, e in sorted(intervals):
+        if end is None or s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+class Trace:
+    """The spans of one ``tracing()`` block, from every thread.
+
+    At open it reads ``perf_counter_ns`` and ``time_ns`` together; every span
+    stamps ``perf_counter_ns`` and is stored on the Unix clock through
+    that pair, the clock of ``torch.profiler``'s events, so the device
+    operations of a recording fall into the spans the host had open."""
+
+    def __init__(self):
+        # the pair read closest together of a few (a preempted read would
+        # shift every span)
+        reads = []
+        for _ in range(5):
+            a, unix, b = time.perf_counter_ns(), time.time_ns(), time.perf_counter_ns()
+            reads.append((b - a, unix - (a + b) // 2))
+        self.offset_ns = min(reads)[1]
+        self.spans: List[Span] = []
+        self._ids = itertools.count(1)
+        self._local = threading.local()
+
+    def _stack(self) -> List[Span]:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+    def open(self, name: str, kind: str = "span", parent: Optional[int] = None,
+             **attrs) -> _Open:
+        """A span named `name` inside this thread's innermost open span
+        (or inside span id `parent`)."""
+        return _Open(self, Span(next(self._ids), name, kind, parent,
+                                threading.current_thread().name, attrs))
+
+    def current(self) -> Optional[Span]:
+        """This thread's innermost open span."""
+        stack = self._stack()
+        return stack[-1] if stack else None
+
+    def paths(self) -> Dict[int, str]:
+        """Each span's path: the names from the top down, joined by '/'."""
+        by_id = {s.id: s for s in self.spans}
+        out: Dict[int, str] = {}
+
+        def path(s: Span) -> str:
+            if s.id not in out:
+                up = by_id.get(s.parent)
+                out[s.id] = s.name if up is None else path(up) + "/" + s.name
+            return out[s.id]
+
+        for s in self.spans:
+            path(s)
+        return out
+
+    def summary(self) -> Dict[str, Dict[str, float]]:
+        """Per span path: ``count``, ``total_s``, ``self_s`` (the total less
+        the time its children cover inside it, on any thread), ``syncs``
+        and ``sync_wait_s`` (the sync spans at or under the path), and
+        where its spans have attributes, their sums (``attrs``)."""
+        paths = self.paths()
+        by_id = {s.id: s for s in self.spans}
+        kids: Dict[int, List[Span]] = collections.defaultdict(list)
+        for s in self.spans:
+            if s.parent in by_id:
+                kids[s.parent].append(s)
+        out: Dict[str, Dict[str, float]] = {}
+        for s in self.spans:
+            row = out.setdefault(paths[s.id], {"count": 0, "total_s": 0.0, "self_s": 0.0,
+                                              "syncs": 0, "sync_wait_s": 0.0})
+            cover = _union((max(k.start_ns, s.start_ns), min(k.end_ns, s.end_ns))
+                           for k in kids[s.id] if k.end_ns > s.start_ns
+                           and k.start_ns < s.end_ns)
+            row["count"] += 1
+            row["total_s"] += s.seconds
+            row["self_s"] += max(s.end_ns - s.start_ns - cover, 0) / 1e9
+            for k, v in s.attrs.items():
+                sums = row.setdefault("attrs", {})
+                sums[k] = sums.get(k, 0) + v
+        for s in self.spans:
+            if s.kind != "sync":
+                continue
+            up: Optional[Span] = s
+            while up is not None:
+                row = out[paths[up.id]]
+                row["syncs"] += 1
+                row["sync_wait_s"] += s.seconds
+                up = by_id.get(up.parent)
+        return dict(sorted(out.items()))
+
+    def idle_by_span(self, busy: Iterable[Tuple[int, int]], thread: Optional[str] = None,
+                     window: Optional[Tuple[int, int]] = None) -> Dict[str, float]:
+        """Seconds in which the device ran nothing, split among the
+        innermost spans open on `thread` (default: the thread that opened
+        the first span) at the time, by path. `busy` holds the device's
+        operations as [start_ns, end_ns) on the Unix clock (kineto's
+        ``start_ns()`` and ``start_ns() + duration_ns()``). The idle time
+        counted lies in `window` ([start_ns, end_ns) on that clock;
+        default: from the first span's start to the last one's end); idle
+        time outside every span goes to ``""``. The values sum to the
+        window's length less the device's busy time inside it."""
+        spans = sorted((s for s in self.spans
+                        if thread is None or s.thread == thread), key=lambda s: s.start_ns)
+        if thread is None and spans:
+            first = spans[0].thread
+            spans = [s for s in spans if s.thread == first]
+        if not spans and window is None:
+            return {}
+        paths = self.paths()
+        if window is not None:
+            lo, hi = window
+        else:
+            lo, hi = spans[0].start_ns, max(s.end_ns for s in spans)
+        # the idle intervals: [lo, hi) less the union of the device's work
+        idle, at = [], lo
+        merged: List[List[int]] = []
+        for s, e in sorted(busy):
+            if merged and s <= merged[-1][1]:
+                merged[-1][1] = max(merged[-1][1], e)
+            else:
+                merged.append([s, e])
+        for s, e in merged:
+            if e <= at:
+                continue
+            if s > at:
+                idle.append((at, min(s, hi)))
+            at = max(at, e)
+            if at >= hi:
+                break
+        if at < hi:
+            idle.append((at, hi))
+        # sweep the span boundaries: between two of them the innermost
+        # open span is fixed
+        events = sorted([(s.start_ns, 1, -(s.end_ns - s.start_ns), s) for s in spans]
+                        + [(s.end_ns, 0, 0, s) for s in spans], key=lambda e: e[:3])
+        out: Dict[str, float] = collections.Counter()
+        stack: List[Span] = []
+        t_prev, i = lo, 0
+        for t, opening, _, s in events + [(hi, 0, 0, None)]:
+            if t > t_prev:
+                owner = paths[stack[-1].id] if stack else ""
+                while i < len(idle) and idle[i][1] <= t_prev:
+                    i += 1
+                j = i
+                while j < len(idle) and idle[j][0] < t:
+                    a, b = max(idle[j][0], t_prev), min(idle[j][1], t)
+                    if b > a:
+                        out[owner] += (b - a) / 1e9
+                    j += 1
+                t_prev = t
+            if s is None:
+                break
+            if opening:
+                stack.append(s)
+            elif s in stack:
+                stack.remove(s)
+        return dict(out)
+
+
+# the recorder the program's spans write to: None (nothing recorded)
+# unless a tracing() block is open
+TRACE: Optional[Trace] = None
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str, **attrs):
+    """A span of the program around the block, inside the thread's
+    innermost open span; `attrs` are host integers that are already at
+    hand (a span never reads the device). Off (``TRACE is None``) it is
+    one shared null context, and neither end synchronizes on or off."""
+    t = TRACE
+    if t is None:
+        return _OFF
+    return t.open(name, **attrs)
+
+
+def sync(site: str):
+    """A span of kind ``sync`` around one call that blocks the host on the
+    device (``.tolist()``, ``int(t.sum())``, ``torch.nonzero``,
+    boolean-mask indexing, ``.cpu()``, a copy from the host): it counts
+    the sync at `site` and times the host's wait there."""
+    t = TRACE
+    if t is None:
+        return _OFF
+    return t.open(site, kind="sync")
+
+
+def note(**attrs) -> None:
+    """Attributes (host integers) of this thread's innermost open span."""
+    t = TRACE
+    if t is not None:
+        s = t.current()
+        if s is not None:
+            s.attrs.update(attrs)
+
+
+def carry(fn, name: str):
+    """`fn` for another thread, run there inside a span `name` whose
+    parent is the span open here now; `fn` itself where tracing is off."""
+    t = TRACE
+    if t is None:
+        return fn
+    s = t.current()
+    parent = s.id if s is not None else None
+
+    def job(*args, **kwargs):
+        with t.open(name, parent=parent):
+            return fn(*args, **kwargs)
+    return job
+
+
+def sync_count(trace: Trace, site: str) -> int:
+    """The sync spans at `site` that `trace` holds."""
+    return sum(1 for s in trace.spans if s.kind == "sync" and s.name == site)
+
+
+@contextlib.contextmanager
+def tracing():
+    """Record the program's spans over the block; yields the Trace."""
+    global TRACE
+    prev, TRACE = TRACE, Trace()
+    try:
+        yield TRACE
+    finally:
+        TRACE = prev

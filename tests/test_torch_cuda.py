@@ -34,7 +34,12 @@ sizes 5, 9, 15, at batches of 1, 3, 5, one tile + 1 and 786,432
 windows, and with grad_out or tl at an address 4 bytes past a 16-byte
 boundary; the polished refinement through it tracks the plain path
 within the refinement tolerance (coord 1e-4 on >= 99 % of rows), and
-equals itself on view shards of the card bit for bit."""
+equals itself on view shards of the card bit for bit.
+The span recorder (utils/profiling.py) on the card: each synchronizing
+operation of a propagation round (depth-2 check included) and of a
+filter pass, as the CUDA sync debug mode reports them, is one sync span
+of the recorder, and none more; a 50 ms host sleep between two kernels
+inside a span puts that idle gap in that span within 5 ms."""
 
 import numpy as np
 import pytest
@@ -539,6 +544,101 @@ def test_pipeline_on_card_tracks_cpu(card, tmp_path):
         assert abs(a - b) <= 0.03 * a, alive
 
 
+def test_recorder_counts_every_sync_of_a_round_and_a_filter_pass(card, tmp_path):
+    """Stage by stage, a reconstruction's synchronizing operations (the
+    load, the seed, two propagation rounds, the second with the depth-2
+    check, two filter passes and the final write) each lie inside one
+    sync span of the recorder, and every sync span holds one."""
+    import collections
+    import time
+    import warnings
+
+    from mvskit_tpu_torch.config import MVSConfig
+    from mvskit_tpu_torch.pipeline.driver import PMMVS
+    from mvskit_tpu_torch.utils import profiling, synthetic
+
+    prefix = str(tmp_path / "data")
+    synthetic.write_dataset(prefix, n_views=6, width=160, height=120, n_seeds=256)
+    cfg = MVSConfig.from_option_file(prefix)
+    cfg.max_patches, cfg.donor_budget, cfg.gauntlet_chunk = 4096, 512, 256
+    cfg.refine_cands, cfg.prop_rounds = 4, 1
+    engine = []
+
+    def second_iteration():
+        engine[0].update_threshold()
+        engine[0].depth += 1  # the round runs the depth-2 check
+        return engine[0].propagate(1)
+
+    stages = (("load", lambda: engine.append(PMMVS(cfg, device=card, log=lambda *a: None))),
+              ("seed", lambda: engine[0].seed()), ("round", lambda: engine[0].propagate(0)),
+              ("filter", lambda: engine[0].filter()), ("round", second_iteration),
+              ("filter", lambda: engine[0].filter()),
+              ("write", lambda: engine[0].write_patches(str(tmp_path / "out"),
+                                                        export_patch=True)))
+    try:
+        for stage, fn in stages:
+            caught = []
+
+            def hook(message, category, filename, lineno, file=None, line=None):
+                if "synchronizing CUDA operation" in str(message):
+                    caught.append((time.perf_counter_ns(), f"{filename}:{lineno}"))
+
+            torch.cuda.synchronize()
+            with profiling.tracing() as trace, warnings.catch_warnings():
+                warnings.simplefilter("always")
+                warnings.showwarning = hook
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    fn()
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            syncs = sorted((s.start_ns - trace.offset_ns, s.end_ns - trace.offset_ns, s.name)
+                           for s in trace.spans if s.kind == "sync")
+            outside = collections.Counter(
+                site for t, site in caught
+                if sum(1 for a, b, _ in syncs if a <= t < b) != 1)
+            hits = collections.Counter(n for a, b, n in syncs
+                                       if sum(1 for t, _ in caught if a <= t < b) != 1)
+            assert len(caught) == len(syncs) > 0 and not outside and not hits, (
+                stage, len(caught), len(syncs), outside, hits)
+            if stage == "round":
+                names = {s.name for s in trace.spans}
+                assert "chunk" in names
+                assert ("check" in names) == (fn is second_iteration)
+    finally:
+        if engine:
+            engine[0].close()
+
+
+def test_idle_gap_lands_in_its_span(card):
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from mvskit_tpu_torch.utils import profiling
+
+    x = torch.randn(1 << 20, device=card)
+
+    def two_kernels():
+        with profiling.tracing() as trace, profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with profiling.span("work"):
+                y = x * 2
+                with profiling.span("gap"):
+                    time.sleep(0.05)
+                y + 1
+                torch.cuda.synchronize()
+        return trace, prof
+
+    two_kernels()  # the profiler's first recording starts slowly
+    trace, prof = two_kernels()
+    busy = [(e.start_ns(), e.start_ns() + e.duration_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA]
+    assert len(busy) == 2
+    idle = trace.idle_by_span(busy)
+    assert abs(idle["work/gap"] - 0.05) < 0.005, idle
+
+
 @pytest.mark.parametrize("luma", [False, True])
 def test_refine_kernel_path_equals_plain_path(card, luma):
     """refine_batch at B = 512 through the sampler's kernels and through
@@ -578,7 +678,7 @@ def test_view_sharded_launch_every_form_bitwise(card, k, luma, group):
     result equals the unsharded launch bit for bit."""
     from mvskit_tpu_torch.ops import cuda_ncc, ncc
     from mvskit_tpu_torch.parallel import shard as sh
-    from mvskit_tpu_torch.utils import synthetic
+    from mvskit_tpu_torch.utils import profiling, synthetic
 
     _, _, scene = synthetic.plane_scene(n_views=6, width=160, height=120, device=card)
     idx, lvl, tl, dx, dy = _windows(scene)  # views 0, 1, 2 of 64 x 32 windows
@@ -589,12 +689,14 @@ def test_view_sharded_launch_every_form_bitwise(card, k, luma, group):
     vs = sh.enable_view_sharding(scene, sh.make_mesh(k, "view", devices=[card] * k))
     cuda_ncc.reset_launches()
     ncc.reset_shard_stats()
-    got, fit, _ = ncc._sample_windows_view_sharded(vs, *args)
+    with profiling.tracing() as trace:
+        got, fit, _ = ncc._sample_windows_view_sharded(vs, *args)
     torch.cuda.synchronize()
     form = cuda_ncc.launch_form(idx.shape[0], group, luma, False)
     shards = {v // (6 // k) for v in range(T)}
     assert cuda_ncc.LAUNCHES == dict(_no_launches(), **{form: len(shards)})
-    assert {s for s, _ in ncc.SHARD_CALLS} == shards and ncc.SHARD_SYNCS["sampler"] == 1
+    assert {s for s, _ in ncc.SHARD_CALLS} == shards
+    assert profiling.sync_count(trace, "sampler.shard_counts") == 1
     assert fit.all() and torch.equal(_bits(got), _bits(want))
 
 

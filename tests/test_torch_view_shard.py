@@ -28,6 +28,7 @@ from mvskit_tpu_torch.parallel import shard as tsh
 from mvskit_tpu_torch.pipeline import propagate as tpr
 from mvskit_tpu_torch.pipeline import refine as trf
 from mvskit_tpu_torch.pipeline import views as tvw
+from mvskit_tpu_torch.utils import profiling
 from torch_replay import jax_scene_to_torch
 
 LEVEL, WSIZE, TAU = 1, 7, 6
@@ -95,12 +96,13 @@ def test_view_sharded_texs_match(sp, k, mode):
     vs = _vshard(ts, k)
     assert vs.view_mesh is not None and len(vs.view_shards) == k
     tncc.reset_shard_stats()
-    got_t, got_v = tncc.texs_for_views_illums(vs, *args)[0]
+    with profiling.tracing() as trace:
+        got_t, got_v = tncc.texs_for_views_illums(vs, *args)[0]
     want_t, want_v = tncc.texs_for_views_illums(ts, *args)[0]
     assert torch.equal(got_t, want_t) and torch.equal(got_v, want_v)
     # one sync per sampler call; each shard owning a used view launched
     # its own form once
-    assert tncc.SHARD_SYNCS["sampler"] == 1
+    assert profiling.sync_count(trace, "sampler.shard_counts") == 1
     form = ("luma_" if luma else "") + ("grouped" if group > 1 else "ungrouped")
     used = {int(x) // (8 // k) for x in np.unique(v)}
     assert {s for s, f in tncc.SHARD_CALLS} == used
