@@ -232,6 +232,7 @@ def tiled_propagate_round(
     row_limit: Optional[int] = None,
     generator: Optional[torch.Generator] = None,
     dp_devices=None,
+    graphs=None,
 ) -> Tuple[PatchTable, pr.RoundStats]:
     """propagate_round with the cell grids row-tiled over `axis` (JAX
     tiles.py:281): tile-local grid build under the live-row bound
@@ -239,7 +240,8 @@ def tiled_propagate_round(
     full-cell gate, then the hypotheses and the gauntlet on the gathered
     grid. It draws the same noise in the same order (the jitter of each
     axis, then each gauntlet chunk's refinement draws) and gives the
-    unsharded round's table and counts bit for bit."""
+    unsharded round's table and counts bit for bit. `graphs`, an
+    engine's runner, replays the gauntlet's chunks as CUDA graphs."""
     noise = pr._noise(noise, generator)
     grid_t = tiled_build_grid(mesh, scene, table, p.level, p.csize, p.cell_capacity,
                               axis=axis, row_limit=row_limit)
@@ -253,4 +255,4 @@ def tiled_propagate_round(
     grid = tiled_grid_to_global(scene, grid_t, p.level, p.csize)
     return pr.round_from_donors(scene, table, grid, donors, gates, noise, p, direction,
                                 ncc_threshold, ncc_threshold_before, use_depth,
-                                quad_threshold, dp_devices)
+                                quad_threshold, dp_devices, graphs=graphs)

@@ -157,6 +157,10 @@ class PMMVS:
                                         "filters": []}
         self._snap_pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
         self._snap_futures: List[concurrent.futures.Future] = []
+        # the gauntlet's CUDA graphs, captured and replayed by the rounds
+        # (propagate._gauntlet_chunked), freed by close()
+        self._graphs = (pr._GauntletGraphs(self.device) if self.device.type == "cuda"
+                        else None)
 
     # ------------------------------------------------------------------
     @property
@@ -257,7 +261,7 @@ class PMMVS:
                           ncc_threshold_before=self.ncc_threshold_before,
                           use_depth=self.depth > 0,
                           quad_threshold=self.cfg.quad_threshold, row_limit=rl,
-                          dp_devices=self._dp_devices)
+                          dp_devices=self._dp_devices, graphs=self._graphs)
             with profiling.span("round"):
                 if pmvs:
                     self.table, state, stats = ex.expand_round(
@@ -428,6 +432,9 @@ class PMMVS:
                     self._snap_pool.submit(profiling.carry(job, "snapshot")))
 
     def close(self) -> None:
-        """Finish pending snapshots and stop the writer thread."""
+        """Finish pending snapshots, stop the writer thread and free the
+        gauntlet's CUDA graphs."""
         self.join_snapshots()
         self._snap_pool.shutdown(wait=True)
+        if self._graphs is not None:
+            self._graphs.release()

@@ -185,7 +185,7 @@ def expand_round(
     scene: Scene, table: PatchTable, state: ExpandState, noise: pr.RoundNoise,
     p: pr.PropagateParams, ncc_threshold, ncc_threshold_before,
     count_threshold, depth: int, use_depth: bool = True, quad_threshold=2.5,
-    row_limit: Optional[int] = None, dp_devices=None,
+    row_limit: Optional[int] = None, dp_devices=None, *, graphs=None,
 ) -> Tuple[PatchTable, ExpandState, pr.RoundStats]:
     """One PMVS-style expansion round: donors by score2 priority ->
     empty-sector candidates -> checkCounts throttle -> gauntlet ->
@@ -194,7 +194,8 @@ def expand_round(
     partitions the grid build, the donor sort, the gauntlet and the
     insertion as in ``propagate_round``; the sector search, the count
     throttle and the count update (one batch of budget / 6 donors and
-    their candidates each) run on the table's device."""
+    their candidates each) run on the table's device. `graphs`, an
+    engine's runner, replays the gauntlet's chunks as CUDA graphs."""
     grid = gridmod.build_grid(scene, table, p.level, p.csize, p.cell_capacity,
                               row_limit=row_limit, dp_devices=dp_devices)
     table = table._replace(alive=table.alive & ~grid.evicted)
@@ -229,7 +230,7 @@ def expand_round(
     out = pr._gauntlet_chunked(
         scene, grid, table, coord, normal, images, ok, noise, p,
         ncc_threshold, ncc_threshold_before, use_depth, quad_threshold,
-        dp_devices,
+        dp_devices, graphs=graphs,
     )
     counts = update_counts(scene, state.counts, out.coord, out.images,
                            out.vimages, out.ok, p.level, p.csize)

@@ -14,10 +14,18 @@ noise provider that replays its key tree feeds both packages the same
 numbers. Only chunks and rows with live hypotheses are computed: every
 hypothesis is independent of the others in its batch, so skipping dead
 rows does not change any live result.
+
+On a CUDA device every chunk of live hypotheses runs at the fixed
+shape of ``p.chunk`` rows, its ragged last chunk padded with copies of
+its first row that enter the gauntlet as dead, and an engine's
+chunks replay CUDA graphs captured on their first chunk
+(``_GauntletGraphs``; ``graph_rule`` says where they run op by op
+instead). The CPU computes the live rows alone, unpadded.
 """
 
 from __future__ import annotations
 
+import collections
 from typing import Dict, NamedTuple, Optional, Protocol, Tuple
 
 import torch
@@ -393,15 +401,170 @@ def insert_patches(table: PatchTable, out: GauntletOut, dp_devices=None) -> Patc
                         for f in range(len(table))))
 
 
+# How the gauntlet's chunks ran since the last reset_graph_stats():
+# "captures" and "replays" of CUDA graphs (every graphed chunk is one
+# replay, its key's first right after its capture), "eager_<reason>"
+# per chunk run op by op (graph_rule's reasons, and "no_runner" for a
+# call without an engine's runner) and "pad_rows", the dead rows that
+# filled ragged chunks to p.chunk rows.
+GRAPHS: collections.Counter = collections.Counter()
+
+
+def reset_graph_stats() -> None:
+    GRAPHS.clear()
+
+
+def graph_rule(device, dp_devices, scene: Scene, p: PropagateParams) -> Optional[str]:
+    """Why a gauntlet chunk on `device` runs op by op, or None where it
+    may replay a captured CUDA graph: "cpu" off a CUDA device; "dp" with
+    the mesh's dp devices, which take the chunks; "view_mesh" on a
+    view-sharded scene, whose sampler reads its shard counts on the host
+    at every call; "polish" with the gradient polish (autograd through
+    the sampler) or while the polish is recorded (CUDA events per
+    refinement)."""
+    if torch.device(device).type != "cuda":
+        return "cpu"
+    if dp_devices:
+        return "dp"
+    if scene.view_mesh is not None or scene.view_group is not None or scene.view_shards:
+        return "view_mesh"
+    if p.grad_steps > 0 or profiling.POLISH is not None:
+        return "polish"
+    return None
+
+
+def _chunk_inputs(coord, normal, images, ok, rows, C: int):
+    """The gauntlet's (coord, normal, images, ok_in) for the hypotheses
+    `rows`, C rows of them: the rows past len(rows) copy the first and
+    enter as dead (ok_in False). Each row is computed alone, so the
+    first len(rows) outputs are the live rows'."""
+    n = rows.numel()
+    idx = rows if n == C else torch.cat([rows, rows[:1].expand(C - n)])
+    ok_in = ok[idx]
+    ok_in[n:] = False
+    return coord[idx], normal[idx], images[idx], ok_in
+
+
+class _Graph(NamedTuple):
+    graph: object        # torch.cuda.CUDAGraph
+    out: GauntletOut     # its static outputs
+    scene: Scene         # held, so that the key's id(scene) stays its own
+    launches: Dict[str, int]                    # cuda_ncc.LAUNCHES increments
+    windows: Dict[str, collections.Counter]     # cuda_ncc.WINDOWS increments
+
+
+class _GauntletGraphs:
+    """An engine's gauntlet chunks as CUDA graph replays.
+
+    A key holds the scene, the shapes of the inputs and every Python
+    value ``run_gauntlet`` bakes into its kernels (`p`, the thresholds,
+    `use_depth`); its first chunk is captured and then replayed, and
+    every later chunk replays. The graphs read static buffers: the scene
+    by reference, the round's grid and table copied in once a round
+    (``load``), the chunk's padded inputs copied in before each replay.
+    The sampler's launch counters (``cuda_ncc.LAUNCHES`` / ``WINDOWS``),
+    which its Python wrappers bump while a graph is captured, take the
+    capture's increments again at every later replay. The graphs share
+    one memory pool: a replay writes all it reads but the static buffers,
+    and its outputs are read before the next replay. ``release`` frees
+    them; the engine's ``close`` calls it."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.graphs: Dict[tuple, _Graph] = {}
+        self.buffers: Dict[tuple, list] = {}
+        self.state = None    # (signature, grid, table) of the round loaded
+        self.stream = None
+        self.pool = None
+
+    def _static(self, role: str, tensors):
+        """Buffers of `role` shaped as `tensors`, holding their values;
+        returns (signature, buffers)."""
+        sig = (role,) + tuple((tuple(t.shape), t.stride(), t.dtype) for t in tensors)
+        bufs = self.buffers.get(sig)
+        if bufs is None:
+            bufs = self.buffers[sig] = [torch.empty_like(t) for t in tensors]
+        for b, t in zip(bufs, tensors):
+            b.copy_(t)
+        return sig, bufs
+
+    def load(self, grid: gridmod.GridState, table: PatchTable) -> None:
+        """Copy a round's grid and table into the static buffers."""
+        gsig, g = self._static("grid", grid)
+        tsig, t = self._static("table", table)
+        self.state = ((gsig, tsig), gridmod.GridState(*g), PatchTable(*t))
+
+    def run(self, scene: Scene, inputs, p: PropagateParams, ncc_threshold,
+            ncc_threshold_before, use_depth, quad_threshold) -> GauntletOut:
+        """``run_gauntlet`` on the loaded grid and table and the chunk's
+        `inputs` (coord, normal, images, ok_in, deltas): a capture on
+        the key's first chunk, then a replay. The outputs are the
+        graph's own tensors, valid until its next replay."""
+        state_sig, grid, table = self.state
+        sig, static = self._static("chunk", inputs)
+        args = (p, ncc_threshold, ncc_threshold_before, use_depth, quad_threshold)
+        key = (id(scene), state_sig, sig) + args
+        entry = self.graphs.get(key)
+        if entry is None:
+            with profiling.span("capture"):
+                entry = self.graphs[key] = self._capture(scene, grid, table, static, args)
+            GRAPHS["captures"] += 1
+        else:
+            for k, v in entry.launches.items():
+                cuda_ncc.LAUNCHES[k] += v
+            for k, c in entry.windows.items():
+                cuda_ncc.WINDOWS[k].update(c)
+        with profiling.span("replay"):
+            entry.graph.replay()
+        GRAPHS["replays"] += 1
+        profiling.note(graphed=1)
+        return entry.out
+
+    def _capture(self, scene, grid, table, static, args) -> _Graph:
+        dev = self.device
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(dev)
+        launches = dict(cuda_ncc.LAUNCHES)
+        windows = {k: collections.Counter(v) for k, v in cuda_ncc.WINDOWS.items()}
+        graph = torch.cuda.CUDAGraph()
+        self.stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.device(dev), torch.cuda.stream(self.stream):
+            graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
+            try:
+                out = run_gauntlet(scene, grid, table, *static, *args)
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(self.stream)
+        self.pool = graph.pool()
+        return _Graph(graph, out, scene,
+                      {k: v - launches[k] for k, v in cuda_ncc.LAUNCHES.items()},
+                      {k: v - windows[k] for k, v in cuda_ncc.WINDOWS.items()})
+
+    def release(self) -> None:
+        """Free the graphs, their pool's tensors and the static buffers."""
+        for entry in self.graphs.values():
+            entry.graph.reset()
+        self.graphs.clear()
+        self.buffers.clear()
+        self.state = self.stream = self.pool = None
+
+
 def _gauntlet_chunked(scene, grid, table, coord, normal, images, ok,
                       noise: RoundNoise, p: PropagateParams, ncc_threshold,
                       ncc_threshold_before, use_depth,
-                      quad_threshold=2.5, dp_devices=None) -> GauntletOut:
+                      quad_threshold=2.5, dp_devices=None, *,
+                      graphs: Optional[_GauntletGraphs] = None) -> GauntletOut:
     """Run the gauntlet over the live hypotheses, `p.chunk` at a time.
 
     Hypothesis h belongs to JAX chunk h // C and row h % C, and draws
     that chunk's noise row; dead hypotheses are not computed (their
     outputs are zeros with ok False, as the JAX gauntlet reports them).
+    On a CUDA device every chunk runs at C rows (``_chunk_inputs``: a
+    ragged chunk's padding rows copy its first row, enter as dead and
+    draw zero deltas, and their outputs are dropped), and with an
+    engine's runner `graphs` each chunk is a replay of its key's CUDA
+    graph where ``graph_rule`` allows; ``GRAPHS`` counts how the chunks
+    ran.
 
     `dp_devices` (the mesh's dp axis) deals the live chunks, whole and
     in order, round robin to those devices: chunk i (rows live[i C:(i +
@@ -411,11 +574,16 @@ def _gauntlet_chunked(scene, grid, table, coord, normal, images, ok,
     hypotheses are computed alone, as the unsharded run computes them,
     so the result is the unsharded one bit for bit. ``shard.DP_ROWS``
     counts the hypotheses each dp device took. The recorder sees a span
-    ``chunk`` (``rows``) per chunk and a sync at every host read."""
+    ``chunk`` (``rows``; ``graphed`` on a replayed one, with ``capture``
+    and ``replay`` inside) per chunk and a sync at every host read."""
     H = coord.shape[0]
     C = min(p.chunk, H)
     n_chunks = (H + C - 1) // C
     dev = coord.device
+    pad = dev.type == "cuda"
+    reason = graph_rule(dev, dp_devices, scene, p)
+    if reason is None and graphs is None:
+        reason = "no_runner"
     with profiling.sync("gauntlet.live"):
         live = torch.nonzero(ok).flatten()
     out = GauntletOut(
@@ -440,13 +608,20 @@ def _gauntlet_chunked(scene, grid, table, coord, normal, images, ok,
         cache[ch] = noise.refine(ch, n_chunks, p.refine_rounds, C,
                                  p.refine_cands).to(dev)
     devices = [dev] if not dp_devices else [torch.device(d) for d in dp_devices]
-    state = sh.replicas(devices, dev, scene, grid, table)
+    if reason is None:
+        graphs.load(grid, table)
+    else:
+        state = sh.replicas(devices, dev, scene, grid, table)
+    args = (p, ncc_threshold, ncc_threshold_before, use_depth, quad_threshold)
     for i, s in enumerate(range(0, live.numel(), C)):
         rows = live[s:s + C]
-        with profiling.span("chunk", rows=rows.numel()):
+        n = rows.numel()
+        width = C if pad else n
+        with profiling.span("chunk", rows=n):
             ch_of, row_of = rows // C, rows % C
-            deltas = torch.empty((p.refine_rounds, rows.numel(), p.refine_cands, 3),
+            deltas = torch.zeros((p.refine_rounds, width, p.refine_cands, 3),
                                  dtype=torch.float32, device=dev)
+            live_deltas = deltas[:, :n]
             with profiling.sync("chunk.noise_ids"):
                 chs = torch.unique(ch_of)
             with profiling.sync("chunk.noise_list"):
@@ -456,18 +631,20 @@ def _gauntlet_chunked(scene, grid, table, coord, normal, images, ok,
                 with profiling.sync("chunk.noise_rows"):
                     src = cache[ch][:, row_of[m]]
                 with profiling.sync("chunk.noise_put"):
-                    deltas[:, m] = src
-            d = devices[i % len(devices)]
-            if dp_devices:
-                sh.DP_ROWS["gauntlet", i % len(devices)] += rows.numel()
-            scn, grd, tbl = state[d]
-            res = run_gauntlet(
-                scn, grd, tbl, coord[rows].to(d), normal[rows].to(d),
-                images[rows].to(d), ok[rows].to(d), deltas.to(d), p, ncc_threshold,
-                ncc_threshold_before, use_depth, quad_threshold,
-            )
+                    live_deltas[:, m] = src
+            inputs = _chunk_inputs(coord, normal, images, ok, rows, width) + (deltas,)
+            GRAPHS["pad_rows"] += width - n
+            if reason is None:
+                res = graphs.run(scene, inputs, *args)
+            else:
+                GRAPHS[f"eager_{reason}"] += 1
+                d = devices[i % len(devices)]
+                if dp_devices:
+                    sh.DP_ROWS["gauntlet", i % len(devices)] += n
+                scn, grd, tbl = state[d]
+                res = run_gauntlet(scn, grd, tbl, *(x.to(d) for x in inputs), *args)
             for dst, src in zip(out, res):
-                dst[rows] = src.to(dev)
+                dst[rows] = src[:n].to(dev)
     return out
 
 
@@ -483,7 +660,8 @@ def propagate_round(
     scene: Scene, table: PatchTable, noise: Optional[RoundNoise],
     p: PropagateParams, direction: int, ncc_threshold, ncc_threshold_before,
     use_depth: bool = True, quad_threshold=2.5, row_limit=None,
-    generator: Optional[torch.Generator] = None, dp_devices=None,
+    generator: Optional[torch.Generator] = None, dp_devices=None, *,
+    graphs: Optional[_GauntletGraphs] = None,
 ) -> Tuple[PatchTable, RoundStats]:
     """One propagation round: each donor propagates into both its x- and
     y-neighbor target cell from one shared grid build and donor
@@ -492,7 +670,9 @@ def propagate_round(
     over the mesh's dp devices: the grid build's rows below `row_limit`,
     the flat slots of donor selection, the donors of hypothesis
     generation, the gauntlet's chunks and the table rows of insertion
-    (each stage's docstring says how it merges)."""
+    (each stage's docstring says how it merges). `graphs`, an engine's
+    runner, replays the gauntlet's chunks as CUDA graphs
+    (``_gauntlet_chunked``)."""
     noise = _noise(noise, generator)
     grid = gridmod.build_grid(scene, table, p.level, p.csize,
                               p.cell_capacity, row_limit=row_limit,
@@ -507,17 +687,20 @@ def propagate_round(
     return round_from_donors(
         scene, table, grid, donors, (None, None), noise, p, direction,
         ncc_threshold, ncc_threshold_before, use_depth, quad_threshold,
-        dp_devices)
+        dp_devices, graphs=graphs)
 
 
 def round_from_donors(scene, table, grid, donors, gates, noise: RoundNoise,
                       p: PropagateParams, direction: int, ncc_threshold,
                       ncc_threshold_before, use_depth, quad_threshold,
-                      dp_devices=None) -> Tuple[PatchTable, RoundStats]:
+                      dp_devices=None, *,
+                      graphs: Optional[_GauntletGraphs] = None
+                      ) -> Tuple[PatchTable, RoundStats]:
     """A round after its grid build and donor selection: hypotheses into
     the x- and y-neighbor cells (``gates`` gives each axis's full-cell
     gate as (gate_full, gate_worst_ncc), or None to read `grid`), the
-    gauntlet, insertion and the round's counts."""
+    gauntlet (replayed by `graphs` where it may), insertion and the
+    round's counts."""
     with profiling.span("hypotheses"):
         parts = []
         for axis, gate in zip((0, 1), gates):
@@ -533,7 +716,7 @@ def round_from_donors(scene, table, grid, donors, gates, noise: RoundNoise,
         out = _gauntlet_chunked(
             scene, grid, table, coord, normal, images, ok, noise, p,
             ncc_threshold, ncc_threshold_before, use_depth, quad_threshold,
-            dp_devices,
+            dp_devices, graphs=graphs,
         )
     with profiling.span("insert"):
         table = insert_patches(table, out, dp_devices)

@@ -184,11 +184,10 @@ def refine_batch(
 
     best_p = p0
     best_c = torch.full((B,), float("inf"), dtype=torch.float32, device=dev)
-    with profiling.sync("refine.radius"):
-        radius = torch.tensor(
-            [init_depth_radius, init_angle_radius, init_angle_radius],
-            dtype=torch.float32, device=dev,
-        )
+    # filled on the device, with no host copy, so that a CUDA graph can
+    # hold it
+    radius = torch.full((3,), init_angle_radius, dtype=torch.float32, device=dev)
+    radius[0].fill_(init_depth_radius)
     if rounds > 0 and deltas is None:
         if generator is None:
             raise ValueError("refine_batch needs deltas or a generator")

@@ -36,10 +36,18 @@ boundary; the polished refinement through it tracks the plain path
 within the refinement tolerance (coord 1e-4 on >= 99 % of rows), and
 equals itself on view shards of the card bit for bit.
 The span recorder (utils/profiling.py) on the card: each synchronizing
-operation of a propagation round (depth-2 check included) and of a
-filter pass, as the CUDA sync debug mode reports them, is one sync span
-of the recorder, and none more; a 50 ms host sleep between two kernels
-inside a span puts that idle gap in that span within 5 ms."""
+operation of a propagation round (depth-2 check included, its gauntlet
+chunks replayed from CUDA graphs) and of a filter pass, as the CUDA sync
+debug mode reports them, is one sync span of the recorder, and none
+more; a 50 ms host sleep between two kernels inside a span puts that
+idle gap in that span within 5 ms.
+The gauntlet's CUDA graphs (pipeline/propagate.py ``_GauntletGraphs``):
+a round's chunks replayed from the graph captured on its first chunk
+equal the same chunks run op by op at the same padded shape, bit for
+bit in every output, on RGB, luma (rgb_tail 2) and 2-illumination
+search with the depth-2 check off and on, and again on the next round's
+table and grid without a new capture; the sampler's launch counters
+read the same, each replay crediting its capture's windows."""
 
 import numpy as np
 import pytest
@@ -605,6 +613,8 @@ def test_recorder_counts_every_sync_of_a_round_and_a_filter_pass(card, tmp_path)
                 names = {s.name for s in trace.spans}
                 assert "chunk" in names
                 assert ("check" in names) == (fn is second_iteration)
+                # its chunks replay CUDA graphs, the first captured
+                assert {"capture", "replay"} <= names, names
     finally:
         if engine:
             engine[0].close()
@@ -905,3 +915,56 @@ def test_polished_refine_on_view_shards_equals_unsharded(card, k):
         assert cuda_ncc.LAUNCHES["grad"] > 0
     for a, b in zip(*out):
         assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("depth2", [False, True])
+@pytest.mark.parametrize("mode", ["rgb", "luma", "illum2"])
+def test_graphed_gauntlet_equals_eager(card, tmp_path, mode, depth2):
+    """Two rounds' chunks through the engine's runner against the same
+    chunks op by op at the padded shape: every GauntletOut field bit for
+    bit, one capture for both rounds, and the same launch counters, each
+    replay crediting the capture's windows."""
+    import collections
+
+    from gauntlet_case import ChunkNoise, bits, make_engine, round_inputs
+    from mvskit_tpu_torch.ops import cuda_ncc
+    from mvskit_tpu_torch.pipeline import propagate as pr
+
+    e = make_engine(str(tmp_path / "data"), card, nillums=2 if mode == "illum2" else 1,
+                    luma_refine=mode == "luma", refine_rgb_tail=2)
+    p = e.prop_params._replace(depth2_check=depth2)
+    assert p.n_illums == (2 if mode == "illum2" else 1) and p.luma_refine == (mode == "luma")
+    runner = pr._GauntletGraphs(card)
+    try:
+        for rnd, direction in enumerate((1, -1)):
+            grid, table, *hyps, ok = round_inputs(e, direction, seed=rnd)
+            live = torch.nonzero(ok).flatten()
+            ok = ok.clone()
+            ok[live[-100:]] = False  # leaves the last chunk ragged
+            hyps.append(ok)
+            runs = []
+            for graphs in (None, runner):
+                cuda_ncc.reset_launches()
+                pr.reset_graph_stats()
+                out = pr._gauntlet_chunked(e.scene, grid, table, *hyps, ChunkNoise(rnd, card),
+                                           p, 0.6, 0.4, True, 2.5, graphs=graphs)
+                torch.cuda.synchronize()
+                runs.append((out, dict(cuda_ncc.LAUNCHES),
+                             {k: collections.Counter(v) for k, v in cuda_ncc.WINDOWS.items()},
+                             collections.Counter(pr.GRAPHS)))
+            (eager, l0, w0, g0), (graphed, l1, w1, g1) = runs
+            for f in pr.GauntletOut._fields:
+                assert torch.equal(bits(getattr(eager, f)), bits(getattr(graphed, f))), (rnd, f)
+            assert graphed.ok.any()
+            chunks = g0["eager_no_runner"]
+            assert chunks >= 2 and g0["pad_rows"] > 0, g0
+            assert g1 == collections.Counter(captures=1 - rnd, replays=chunks,
+                                             pad_rows=g0["pad_rows"]), g1
+            assert l1 == l0 and w1 == w0
+            (entry,) = runner.graphs.values()
+            assert w1 == {k: collections.Counter({b: c * chunks for b, c in v.items()})
+                          for k, v in entry.windows.items()}
+            e.table = pr.insert_patches(table, graphed)
+    finally:
+        runner.release()
+        e.close()

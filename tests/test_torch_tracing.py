@@ -6,9 +6,12 @@ of a reconstruction (load, seed, propagation's rounds and their stages,
 the filter phases, the writes and the writer thread's snapshots) with
 each round's hypothesis count; its clock is the one torch.profiler's
 events carry; and its summary and idle split are what their docstrings
-say. The card's side (each sync the recorder counts is one the CUDA sync
-debug mode reports, and an idle gap lands in its span) is in
-``tests/test_torch_cuda.py``."""
+say. On the CPU a gauntlet chunk runs its stages op by op under its
+``chunk`` span; on a card (the one test here that needs one) a chunk is
+``graphed``, its key's first holds the ``capture`` (the stages' spans
+inside it) and each holds its ``replay``. The card's other side (each
+sync the recorder counts is one the CUDA sync debug mode reports, and an
+idle gap lands in its span) is in ``tests/test_torch_cuda.py``."""
 
 from __future__ import annotations
 
@@ -163,6 +166,75 @@ def test_span_tree(traced_run):
     assert "propagate/round/round.total" in syncs
     assert "filter/neighbor/neighbor.kills" in syncs
     assert summary["propagate/round"]["syncs"] > 0
+
+
+STAGES = {"pre", "refine", "post", "views", "check"}
+
+
+def _children(trace):
+    kids = {}
+    for s in trace.spans:
+        kids.setdefault(s.parent, []).append(s)
+    return kids
+
+
+def test_cpu_chunks_run_their_stages_op_by_op(traced_run):
+    trace, _ = traced_run
+    kids = _children(trace)
+    chunks = [s for s in trace.spans if s.name == "chunk"]
+    assert chunks
+    for c in chunks:
+        assert set(c.attrs) == {"rows"}
+        names = {k.name for k in kids.get(c.id, []) if k.kind == "span"}
+        assert {"pre", "refine", "post", "views"} <= names <= STAGES, names
+
+
+@pytest.mark.cuda
+def test_card_chunks_replay_graphs(tmp_path):
+    """On a card each chunk of a traced two-iteration run is graphed and
+    holds its replay; the first chunk of each key (one per iteration
+    here) holds the capture, with the stages' spans inside it and no
+    sync."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is False)")
+    from mvskit_tpu_torch.pipeline import propagate as pr
+    from mvskit_tpu_torch.pipeline.driver import PMMVS
+    from mvskit_tpu_torch.utils import synthetic
+
+    prefix = str(tmp_path / "plane")
+    synthetic.write_dataset(prefix, n_views=6, width=160, height=120, n_seeds=256)
+    cfg = _config(prefix, n_iterations=2, prop_rounds=2, donor_budget=512,
+                  gauntlet_chunk=256)
+    pr.reset_graph_stats()
+    with profiling.tracing() as trace:
+        engine = PMMVS(cfg, device="cuda", log=lambda *a: None)
+        try:
+            engine.run(write_snapshots=False)
+        finally:
+            engine.close()
+    kids, paths = _children(trace), trace.paths()
+    chunks = [s for s in trace.spans if s.name == "chunk"]
+    assert len(chunks) >= 4 and pr.GRAPHS["replays"] == len(chunks)
+    assert pr.GRAPHS["captures"] == 2 and not any(k.startswith("eager") for k in pr.GRAPHS)
+    captures = []
+    for c in chunks:
+        assert c.attrs.get("graphed") == 1, c.attrs
+        names = [k.name for k in kids.get(c.id, []) if k.kind == "span"]
+        assert names in (["replay"], ["capture", "replay"]), names
+        captures += [k for k in kids[c.id] if k.name == "capture"]
+    assert len(captures) == 2
+    for cap in captures:
+        inside = {k.name for k in kids.get(cap.id, [])}
+        assert {"pre", "refine", "post", "views"} <= inside <= STAGES, inside
+        assert not any(s.kind == "sync" and paths[s.id].startswith(paths[cap.id] + "/")
+                       for s in trace.spans)
+    # the captures are the first chunk of each iteration's propagation
+    firsts = []
+    for prop in (s for s in trace.spans if s.name == "propagate"):
+        under = [c for c in chunks if paths[c.id].startswith("propagate/")
+                 and c.start_ns >= prop.start_ns and c.end_ns <= prop.end_ns]
+        firsts.append(min(under, key=lambda c: c.start_ns).id)
+    assert sorted(firsts) == sorted(cap.parent for cap in captures)
 
 
 def test_snapshot_runs_on_the_writer_thread(traced_run):
