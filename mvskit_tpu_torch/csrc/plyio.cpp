@@ -1,4 +1,5 @@
-// Copy of native/plyio.cpp, built by mvskit_tpu_torch/io/native.py.
+// Copy of native/plyio.cpp, built by mvskit_tpu_torch/io/native.py, with
+// the port's own .patch encoder (patch_write) added.
 // Native PLY vertex reader/writer for mvskit_tpu.
 //
 // The reference keeps its point-cloud I/O in native code (io/io_file.c
@@ -10,9 +11,11 @@
 // magnitude faster than the pure-Python path on multi-million-point
 // clouds. List properties (faces) after the vertex element are ignored.
 //
-// Build: g++ -O2 -shared -fPIC -o libplyio.so plyio.cpp
+// Build: g++ -std=c++17 -O2 -shared -fPIC -o libplyio.so plyio.cpp
 
 #include <cctype>
+#include <charconv>
+#include <cmath>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
@@ -111,6 +114,123 @@ int rgb_base(const Header& h) {
       return a;
   }
   return -1;
+}
+
+// ---- the .patch encoder's text: Python's repr of floats and ints ----
+
+// The shortest decimal digits that read back as v (v > 0, finite), as
+// Python's repr chooses them: digits[0..*nd) and the exponent *e of
+// d.ddd x 10^e.
+void shortest_digits(double v, char* digits, int* nd, int* e) {
+  char buf[64];
+#if defined(__cpp_lib_to_chars) && __cpp_lib_to_chars >= 201611L
+  char* end = std::to_chars(buf, buf + sizeof buf, v,
+                            std::chars_format::scientific).ptr;
+  *end = 0;
+#else
+  // no floating-point to_chars: the least precision that reads back
+  for (int prec = 0; prec < 17; ++prec) {
+    snprintf(buf, sizeof buf, "%.*e", prec, v);
+    if (strtod(buf, nullptr) == v) break;
+  }
+#endif
+  int k = 0;
+  const char* q = buf;
+  for (; *q != 'e'; ++q)
+    if (*q != '.') digits[k++] = *q;
+  while (k > 1 && digits[k - 1] == '0') --k;
+  *nd = k;
+  *e = atoi(q + 1);
+}
+
+char* put_str(char* p, const char* s, int len) {
+  memcpy(p, s, len);
+  return p + len;
+}
+
+// repr(float(x)): shortest round-trip digits, in fixed notation when the
+// decimal exponent lies in [-4, 16) (an integral value gets ".0"), else
+// d.ddde+XX with at least two exponent digits; nan, inf, -inf, -0.0.
+// Writes at most 24 chars.
+char* put_double(char* p, double x) {
+  if (std::isnan(x)) return put_str(p, "nan", 3);
+  if (std::signbit(x)) *p++ = '-';
+  if (std::isinf(x)) return put_str(p, "inf", 3);
+  if (x == 0) return put_str(p, "0.0", 3);
+  char d[32];
+  int nd, e;
+  shortest_digits(std::fabs(x), d, &nd, &e);
+  if (e >= -4 && e < 16) {
+    int point = e + 1;  // digits before the decimal point
+    if (point <= 0) {
+      p = put_str(p, "0.", 2);
+      for (int i = 0; i < -point; ++i) *p++ = '0';
+      return put_str(p, d, nd);
+    }
+    if (point < nd) {
+      p = put_str(p, d, point);
+      *p++ = '.';
+      return put_str(p, d + point, nd - point);
+    }
+    p = put_str(p, d, nd);
+    for (int i = nd; i < point; ++i) *p++ = '0';
+    return put_str(p, ".0", 2);
+  }
+  *p++ = d[0];
+  if (nd > 1) {
+    *p++ = '.';
+    p = put_str(p, d + 1, nd - 1);
+  }
+  *p++ = 'e';
+  *p++ = e < 0 ? '-' : '+';
+  int a = e < 0 ? -e : e;
+  if (a >= 100) *p++ = (char)('0' + a / 100);
+  *p++ = (char)('0' + a / 10 % 10);
+  *p++ = (char)('0' + a % 10);
+  return p;
+}
+
+// str(v) of an integer.
+char* put_int(char* p, long v) {
+  if (v < 0) {
+    *p++ = '-';
+    v = -v;
+  }
+  char t[24];
+  int k = 0;
+  do {
+    t[k++] = (char)('0' + v % 10);
+    v /= 10;
+  } while (v);
+  while (k) *p++ = t[--k];
+  return p;
+}
+
+// A row's entries (its >= 0 values, in order): the count line, then the
+// entries joined by spaces on the next line (empty for none).
+char* put_ids(char* p, const int32_t* row, long w) {
+  long k = 0;
+  for (long j = 0; j < w; ++j) k += row[j] >= 0;
+  p = put_int(p, k);
+  *p++ = '\n';
+  bool first = true;
+  for (long j = 0; j < w; ++j) {
+    if (row[j] < 0) continue;
+    if (!first) *p++ = ' ';
+    first = false;
+    p = put_int(p, row[j]);
+  }
+  *p++ = '\n';
+  return p;
+}
+
+char* put_floats(char* p, const float* v, int k, char end) {
+  for (int i = 0; i < k; ++i) {
+    if (i) *p++ = ' ';
+    p = put_double(p, (double)v[i]);
+  }
+  *p++ = end;
+  return p;
 }
 
 }  // namespace
@@ -262,6 +382,50 @@ int ply_write(const char* path, long n, const float* xyz,
   }
   fclose(f);
   return 0;
+}
+
+// Write the .patch file of io/patch_io.py's write_patch_file, byte for
+// byte: coord / normal [n*4], ncc / dscale / ascale [n] float32, each
+// printed as Python's repr of the value widened to a double; images
+// [n*wi] and vimages [n*wv] int32 dataset ids, -1 where a row has no
+// entry (anywhere in the row). Returns 0 on success.
+int patch_write(const char* path, long n, const float* coord,
+                const float* normal, const float* ncc, const float* dscale,
+                const float* ascale, const int32_t* images, long wi,
+                const int32_t* vimages, long wv) {
+  FILE* f = fopen(path, "wb");
+  if (!f) return -1;
+  const size_t flush_at = (size_t)1 << 20;
+  // one patch at most: the tag, 11 floats, 2 counts, wi + wv ids, spaces
+  const size_t most = 64 + 11 * 25 + 2 * 21 + (size_t)(wi + wv) * 12;
+  std::vector<char> buf(flush_at + most);
+  char* p = buf.data();
+  bool ok = true;
+  p = put_str(p, "PATCHES\n", 8);
+  p = put_int(p, n);
+  *p++ = '\n';
+  for (long i = 0; i < n && ok; ++i) {
+    p = put_str(p, "PATCHES\n", 8);
+    p = put_floats(p, coord + i * 4, 4, '\n');
+    p = put_floats(p, normal + i * 4, 4, '\n');
+    p = put_double(p, (double)ncc[i]);
+    *p++ = ' ';
+    p = put_double(p, (double)dscale[i]);
+    *p++ = ' ';
+    p = put_double(p, (double)ascale[i]);
+    *p++ = '\n';
+    p = put_ids(p, images + i * wi, wi);
+    p = put_ids(p, vimages + i * wv, wv);
+    if ((size_t)(p - buf.data()) >= flush_at) {
+      size_t len = p - buf.data();
+      ok = fwrite(buf.data(), 1, len, f) == len;
+      p = buf.data();
+    }
+  }
+  size_t len = p - buf.data();
+  if (ok && len) ok = fwrite(buf.data(), 1, len, f) == len;
+  if (fclose(f) != 0) ok = false;
+  return ok ? 0 : -1;
 }
 
 }  // extern "C"

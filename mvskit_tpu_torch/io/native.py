@@ -1,5 +1,5 @@
-# Copy of mvskit_tpu/io/native.py (library source and build directory are the port's own); the port imports nothing of mvskit_tpu.
-"""ctypes bindings for the native PLY library (csrc/plyio.cpp).
+# Copy of mvskit_tpu/io/native.py (library source and build directory are the port's own, and so is the .patch encoder); the port imports nothing of mvskit_tpu.
+"""ctypes bindings for the native PLY and .patch library (csrc/plyio.cpp).
 
 The reference keeps point-cloud I/O native (io/io_file.c + RPly,
 SURVEY.md C14/C15). The shared library is auto-built with g++ on first
@@ -44,7 +44,7 @@ def _load() -> Optional[ctypes.CDLL]:
                 os.makedirs(_BUILD, exist_ok=True)
                 tmp = f"{path}.{os.getpid()}.tmp"
                 subprocess.run(
-                    ["g++", "-O2", "-shared", "-fPIC", "-o", tmp, _SRC],
+                    ["g++", "-std=c++17", "-O2", "-shared", "-fPIC", "-o", tmp, _SRC],
                     check=True,
                     capture_output=True,
                     timeout=120,
@@ -64,6 +64,13 @@ def _load() -> Optional[ctypes.CDLL]:
                 ctypes.c_char_p, ctypes.c_long,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_int,
+            ]
+            lib.patch_write.restype = ctypes.c_int
+            lib.patch_write.argtypes = [
+                ctypes.c_char_p, ctypes.c_long,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p, ctypes.c_long,
             ]
             _lib = lib
         except Exception:
@@ -130,4 +137,37 @@ def write_ply(
         col.ctypes.data_as(ctypes.c_void_p) if col is not None else None,
         1 if binary else 0,
     )
+    return rc == 0
+
+
+def write_patches(
+    path: str,
+    coord: np.ndarray,
+    normal: np.ndarray,
+    ncc: np.ndarray,
+    dscale: np.ndarray,
+    ascale: np.ndarray,
+    images: np.ndarray,
+    vimages: np.ndarray,
+) -> bool:
+    """The .patch file that io/patch_io.py's write_patch_file writes, byte
+    for byte, from arrays: float32 coord / normal [n, 4] and ncc / dscale
+    / ascale [n]; int32 images [n, W] and vimages [n, V] of dataset ids,
+    -1 where a row has no entry. False where the library is not there or
+    the write failed. The call releases the GIL (ctypes)."""
+    lib = _load()
+    if lib is None:
+        return False
+    n = coord.shape[0]
+    floats = [np.ascontiguousarray(a) for a in (coord, normal, ncc, dscale, ascale)]
+    ids = [np.ascontiguousarray(a) for a in (images, vimages)]
+    shapes = [(n, 4), (n, 4), (n,), (n,), (n,)]
+    if any(a.dtype != np.float32 or a.shape != s for a, s in zip(floats, shapes)):
+        raise ValueError("coord / normal must be float32 [n, 4], ncc / dscale / ascale "
+                         "float32 [n]")
+    if any(a.dtype != np.int32 or a.ndim != 2 or a.shape[0] != n for a in ids):
+        raise ValueError("images / vimages must be int32 [n, width]")
+    ptr = [a.ctypes.data_as(ctypes.c_void_p) for a in floats + ids]
+    rc = lib.patch_write(path.encode(), n, *ptr[:5], ptr[5], ids[0].shape[1],
+                         ptr[6], ids[1].shape[1])
     return rc == 0

@@ -1,4 +1,5 @@
-# Copy of mvskit_tpu/io/patch_io.py; the port imports nothing of mvskit_tpu.
+# Copy of mvskit_tpu/io/patch_io.py, with the port's own native path for padded arrays
+# (write_patch_arrays) and its WRITERS counter; the port imports nothing of mvskit_tpu.
 """.patch checkpoint format.
 
 The reference's text serialization doubles as its checkpoint/resume and
@@ -22,13 +23,30 @@ Layout:
 Image ids in the file are dataset image *ids*; in-memory lists hold
 *indices* (the reference converts with image2index/index2image,
 patch_manager.cpp:53-73).
+
+``write_patch_file`` encodes in Python from lists; ``write_patch_arrays``
+encodes padded arrays in native code (io/native.py) where the library
+loaded, the same bytes. ``WRITERS`` counts the files each wrote.
 """
 
 from __future__ import annotations
 
+import collections
+import threading
 from typing import Dict, List, Sequence
 
 import numpy as np
+
+from . import native
+
+# patch files written, by encoder: "native" or "python"
+WRITERS: collections.Counter = collections.Counter()
+_writers_lock = threading.Lock()
+
+
+def _count(writer: str) -> None:
+    with _writers_lock:
+        WRITERS[writer] += 1
 
 
 def read_patch_file(path: str) -> Dict[str, np.ndarray]:
@@ -105,6 +123,30 @@ def write_patch_file(
             f.write(" ".join(str(int(v)) for v in images[p]) + "\n")
             f.write(f"{len(vimages[p])}\n")
             f.write(" ".join(str(int(v)) for v in vimages[p]) + "\n")
+    _count("python")
+
+
+def write_patch_arrays(
+    path: str,
+    coord: np.ndarray,
+    normal: np.ndarray,
+    ncc: np.ndarray,
+    dscale: np.ndarray,
+    ascale: np.ndarray,
+    images: np.ndarray,
+    vimages: np.ndarray,
+) -> str:
+    """``write_patch_file``'s bytes from float32 arrays and int32 [n, W]
+    id arrays (-1 where a row has no entry): in native code where the
+    library loaded, else through ``padded_to_lists`` and
+    ``write_patch_file``. Returns the encoder that wrote: "native" or
+    "python"."""
+    if native.write_patches(path, coord, normal, ncc, dscale, ascale, images, vimages):
+        _count("native")
+        return "native"
+    write_patch_file(path, coord, normal, ncc, dscale, ascale,
+                     padded_to_lists(images), padded_to_lists(vimages))
+    return "python"
 
 
 def lists_to_padded(lists: Sequence[Sequence[int]], width: int) -> np.ndarray:

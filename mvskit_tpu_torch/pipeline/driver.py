@@ -65,20 +65,24 @@ def _encode_and_write(path_prefix: str, data: Dict[str, np.ndarray],
                       rgb: Optional[np.ndarray], image_ids: np.ndarray,
                       export_ply: bool, export_patch: bool,
                       binary_ply: bool) -> None:
-    """Host-only snapshot encode + disk write."""
+    """Host-only snapshot encode + disk write. The patch file's padded
+    view lists are translated from indices to dataset ids in one array
+    operation (-1 stays -1) and encoded as they are; the encoder that
+    wrote is the ``writer`` attribute of the innermost open span."""
     os.makedirs(os.path.dirname(os.path.abspath(path_prefix)), exist_ok=True)
     if export_ply:
         ply.write_ply(path_prefix + ".ply", data["coord"][:, :3],
                       normal=data["normal"][:, :3], rgb=rgb, binary=binary_ply)
     if export_patch:
         def translate(padded):
-            return [[int(image_ids[v]) for v in row[row >= 0]] for row in padded]
+            return np.where(padded >= 0, image_ids[np.clip(padded, 0, None)], -1)
 
-        patch_io.write_patch_file(
+        writer = patch_io.write_patch_arrays(
             path_prefix + ".patch", data["coord"], data["normal"],
             data["ncc"], data["dscale"], data["ascale"],
             translate(data["images"]), translate(data["vimages"]),
         )
+        profiling.note(writer=writer)
 
 
 class PMMVS:
@@ -421,7 +425,7 @@ class PMMVS:
             if export_ply:
                 with profiling.span("colors"):
                     rgb = self.patch_colors(data["coord"], data["images"])
-            image_ids = np.asarray(self.cfg.images, dtype=np.int64)
+            image_ids = np.asarray(self.cfg.images, dtype=np.int32)
             job = functools.partial(_encode_and_write, path_prefix, data, rgb,
                                     image_ids, export_ply, export_patch, binary_ply)
             if wait:

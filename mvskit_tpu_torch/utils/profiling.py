@@ -182,8 +182,8 @@ class Span:
     inside (None at the top; for a job handed to another thread, the
     span that handed it over), the thread's name, its start and end in
     nanoseconds on the Unix clock that ``torch.profiler``'s kineto events
-    stamp (``start_ns()``), and attributes that were host integers
-    already."""
+    stamp (``start_ns()``), and attributes: host integers that were at
+    hand already, or strings that name a path the code took."""
 
     __slots__ = ("id", "name", "kind", "parent", "thread", "start_ns", "end_ns", "attrs")
 
@@ -293,7 +293,8 @@ class Trace:
         """Per span path: ``count``, ``total_s``, ``self_s`` (the total less
         the time its children cover inside it, on any thread), ``syncs``
         and ``sync_wait_s`` (the sync spans at or under the path), and
-        where its spans have attributes, their sums (``attrs``)."""
+        where its spans have attributes, their sums (``attrs``; of a
+        string attribute, the count of each value)."""
         paths = self.paths()
         by_id = {s.id: s for s in self.spans}
         kids: Dict[int, List[Span]] = collections.defaultdict(list)
@@ -312,7 +313,11 @@ class Trace:
             row["self_s"] += max(s.end_ns - s.start_ns - cover, 0) / 1e9
             for k, v in s.attrs.items():
                 sums = row.setdefault("attrs", {})
-                sums[k] = sums.get(k, 0) + v
+                if isinstance(v, str):
+                    counts = sums.setdefault(k, {})
+                    counts[v] = counts.get(v, 0) + 1
+                else:
+                    sums[k] = sums.get(k, 0) + v
         for s in self.spans:
             if s.kind != "sync":
                 continue
@@ -422,7 +427,8 @@ def sync(site: str):
 
 
 def note(**attrs) -> None:
-    """Attributes (host integers) of this thread's innermost open span."""
+    """Attributes (host integers, or strings naming a path taken) of this
+    thread's innermost open span."""
     t = TRACE
     if t is not None:
         s = t.current()

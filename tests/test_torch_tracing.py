@@ -15,6 +15,7 @@ idle gap lands in its span) is in ``tests/test_torch_cuda.py``."""
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import threading
@@ -249,6 +250,25 @@ def test_snapshot_runs_on_the_writer_thread(traced_run):
         assert parent.name == "write" and parent.thread == main
         assert s.start_ns >= parent.start_ns
     assert all(s.thread == main for s in trace.spans if s.name != "snapshot")
+
+
+def test_encode_span_names_the_writer(traced_run, tmp_path):
+    """The final write's ``encode`` span names the encoder that wrote the
+    patch file, and ``patch_io.WRITERS`` counts it: native where the
+    library loaded (the other side, MVSKIT_NO_NATIVE, is in
+    tests/test_torch_patch_native.py). The snapshots write no patch file."""
+    from mvskit_tpu_torch.io import native, patch_io
+
+    trace, engine = traced_run
+    want = "native" if native.available() else "python"
+    assert [s.attrs for s in trace.spans if s.name == "encode"] == [{"writer": want}]
+    assert all(not s.attrs for s in trace.spans if s.name == "snapshot")
+    assert trace.summary()["write/encode"]["attrs"] == {"writer": {want: 1}}
+    before = collections.Counter(patch_io.WRITERS)
+    with profiling.tracing() as tr:
+        engine.write_patches(str(tmp_path / "again"), export_ply=False, export_patch=True)
+    assert patch_io.WRITERS - before == collections.Counter({want: 1})
+    assert [s.attrs for s in tr.spans if s.name == "encode"] == [{"writer": want}]
 
 
 def test_clock_is_the_profilers():
