@@ -624,11 +624,12 @@ def bench_phase(dev):
     launches)."""
     from mvskit_tpu_torch.ops import cuda_ncc
     from mvskit_tpu_torch.tools import bench_kernel as bk
+    from mvskit_tpu_torch.utils import profiling
 
     scene = bk.bench_scene(dev, **bk.SCENE)
     settings = ([(g, f, "") for g in (1, N_CANDS) for f in (False, True)]
                 + [(N_CANDS, False, a) for a in cuda_ncc.ABLATIONS[1:]])
-    cuda_ncc.reset_launches()
+    profiling.COUNTERS.reset()
     records = []
     for group, fused, ablate in settings:
         res = bk.run(bk.N_WINDOWS, reps=7, group=group, fused=fused, ablate=ablate,
@@ -718,12 +719,13 @@ def cli_path(tag, dev, prefix, *flags):
     from mvskit_tpu_torch import cli
     from mvskit_tpu_torch.io import ply
     from mvskit_tpu_torch.ops import cuda_ncc
+    from mvskit_tpu_torch.utils import profiling
 
     out = os.path.join(prefix, "ply", "final_patches")
     report_path = os.path.join(prefix, f"report_{tag}.json")
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    cuda_ncc.reset_launches()
+    profiling.COUNTERS.reset()
     t0 = time.time()
     rc = cli.main([prefix, "--device", dev.type, "--export-patch", "--out", out,
                    "--report", report_path, *flags])
@@ -782,8 +784,7 @@ def engine_path(tag, dev, prefix, scene=None, mesh_devices=None, **overrides):
     import torch
 
     from mvskit_tpu_torch.config import MVSConfig
-    from mvskit_tpu_torch.ops import cuda_ncc, ncc
-    from mvskit_tpu_torch.parallel import shard as sh
+    from mvskit_tpu_torch.ops import cuda_ncc
     from mvskit_tpu_torch.pipeline.driver import PMMVS
     from mvskit_tpu_torch.utils import profiling
 
@@ -792,9 +793,7 @@ def engine_path(tag, dev, prefix, scene=None, mesh_devices=None, **overrides):
         setattr(cfg, k, v)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    cuda_ncc.reset_launches()
-    ncc.reset_shard_stats()
-    sh.reset_dp_stats()
+    profiling.COUNTERS.reset()
     t0 = time.time()
     engine = PMMVS(cfg, scene=scene, device=dev, log=lambda *a: None,
                    mesh_devices=mesh_devices)
@@ -1083,10 +1082,11 @@ def refine_tools_phase(dev, workdir):
     from mvskit_tpu_torch.tools import ab_luma, ab_refine_chip, bench, bench_refine_parts
     from mvskit_tpu_torch.tools import coverage_sweep
     from mvskit_tpu_torch.tools.bench_kernel import bench_scene, bits_equal
+    from mvskit_tpu_torch.utils import profiling
 
     def counted(tag, fn):
         torch.cuda.synchronize(dev)
-        cuda_ncc.reset_launches()
+        profiling.COUNTERS.reset()
         t0 = time.time()
         res = fn()
         torch.cuda.synchronize(dev)

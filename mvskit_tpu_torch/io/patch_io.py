@@ -31,22 +31,16 @@ loaded, the same bytes. ``WRITERS`` counts the files each wrote.
 
 from __future__ import annotations
 
-import collections
-import threading
 from typing import Dict, List, Sequence
 
 import numpy as np
 
+from ..utils import profiling
 from . import native
 
-# patch files written, by encoder: "native" or "python"
-WRITERS: collections.Counter = collections.Counter()
-_writers_lock = threading.Lock()
-
-
-def _count(writer: str) -> None:
-    with _writers_lock:
-        WRITERS[writer] += 1
+# patch files written, by encoder: "native" or "python" (the snapshot
+# writer thread writes too, so each count takes the registry's lock)
+WRITERS = profiling.COUNTERS.counter("patch_io.WRITERS")
 
 
 def read_patch_file(path: str) -> Dict[str, np.ndarray]:
@@ -123,7 +117,8 @@ def write_patch_file(
             f.write(" ".join(str(int(v)) for v in images[p]) + "\n")
             f.write(f"{len(vimages[p])}\n")
             f.write(" ".join(str(int(v)) for v in vimages[p]) + "\n")
-    _count("python")
+    with profiling.COUNTERS.lock:
+        WRITERS["python"] += 1
 
 
 def write_patch_arrays(
@@ -142,7 +137,8 @@ def write_patch_arrays(
     ``write_patch_file``. Returns the encoder that wrote: "native" or
     "python"."""
     if native.write_patches(path, coord, normal, ncc, dscale, ascale, images, vimages):
-        _count("native")
+        with profiling.COUNTERS.lock:
+            WRITERS["native"] += 1
         return "native"
     write_patch_file(path, coord, normal, ncc, dscale, ascale,
                      padded_to_lists(images), padded_to_lists(vimages))

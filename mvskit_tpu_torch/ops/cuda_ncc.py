@@ -20,11 +20,11 @@ drops one stage of the work and has a defined output that its plain
 version repeats. ``LAUNCHES`` counts kernel launches per form,
 ablated launches per switch and the backward kernel's launches (keys
 ``grad`` / ``luma_grad``); ``WINDOWS`` counts those launches per
-batch size. ``grouped_plan`` and ``ungrouped_plan`` report how the
-persistent window kernel launches a batch on the current card (tile,
-grid, threads, shared memory, output stages, store path),
-``fused_plan`` how the fused form (K4) does, and ``grad_plan`` how the
-backward kernel does.
+batch size (``profiling.COUNTERS`` holds both). ``grouped_plan`` and
+``ungrouped_plan`` report how the persistent window kernel launches a
+batch on the current card (tile, grid, threads, shared memory, output
+stages, store path), ``fused_plan`` how the fused form (K4) does, and
+``grad_plan`` how the backward kernel does.
 
 The gradient polish of the refinement (``pipeline/refine.py``) needs
 the samples' derivative with respect to the lattice. The JAX package
@@ -37,23 +37,22 @@ gather path (``sample_windows_grad_plain``).
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 
 import torch
 
 from ..image.scene import Scene
+from ..utils import profiling
 from . import sampling
 
 # the JAX kernel's `ablate` settings (pallas_ncc.py:194-200), in the
 # order of csrc/sample_windows.cu's Ablate enum
 ABLATIONS = ("", "nodma", "nocompute", "norot", "nowx", "nomm")
 
-LAUNCHES = {"ungrouped": 0, "grouped": 0, "luma_ungrouped": 0,
-            "luma_grouped": 0, "fused": 0, "luma_fused": 0,
-            **{f"ablate_{a}": 0 for a in ABLATIONS[1:]},
-            "grad": 0, "luma_grad": 0}
+LAUNCHES = profiling.COUNTERS.counter("cuda_ncc.LAUNCHES", (
+    "ungrouped", "grouped", "luma_ungrouped", "luma_grouped", "fused", "luma_fused",
+    *(f"ablate_{a}" for a in ABLATIONS[1:]), "grad", "luma_grad"))
 
 # the TPU kernel's grouped form needs group | 128 (W_BLK); the same
 # rule picks the launch form here (pallas_ncc.py:609-610)
@@ -61,13 +60,7 @@ _W_BLK = 128
 
 
 # per key of LAUNCHES, its launches counted by batch size (windows)
-WINDOWS = {k: collections.Counter() for k in LAUNCHES}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-        WINDOWS[k].clear()
+WINDOWS = {k: profiling.COUNTERS.counter(f"cuda_ncc.WINDOWS/{k}") for k in LAUNCHES}
 
 
 def lattice(tl, dx, dy, wsize: int, origin: bool = False):

@@ -16,7 +16,6 @@ so the dot of two normalized rows is the reference's mean NCC dot.
 
 from __future__ import annotations
 
-import collections
 import math
 
 import torch
@@ -286,13 +285,8 @@ def sample_windows_raw(
 # sampler calls of the view-sharded path and their windows (its host
 # syncs, one per sampler call for the shards' window counts, are the
 # recorder's sync spans "sampler.shard_counts", utils/profiling.py)
-SHARD_CALLS: collections.Counter = collections.Counter()
-SHARD_WINDOWS: collections.Counter = collections.Counter()
-
-
-def reset_shard_stats() -> None:
-    SHARD_CALLS.clear()
-    SHARD_WINDOWS.clear()
+SHARD_CALLS = profiling.COUNTERS.counter("ncc.SHARD_CALLS")
+SHARD_WINDOWS = profiling.COUNTERS.counter("ncc.SHARD_WINDOWS")
 
 
 def _sample_windows_view_sharded(

@@ -32,12 +32,11 @@ what it reads per distinct device (``replicas``; the counterpart of the
 all-gathers GSPMD inserts), and joins the blocks' results on the home
 device in block order. ``DP_ROWS`` counts the rows each dp shard took in
 each stage and ``DP_K1`` the K1 launches each made in hypothesis
-scoring; ``reset_dp_stats`` clears both.
+scoring (both in ``profiling.COUNTERS``).
 """
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -46,6 +45,7 @@ import torch
 
 from ..core.patches import PatchTable
 from ..image.scene import Scene, ViewShard
+from ..utils import profiling
 
 # the driver's mesh axes, in the order of MVSConfig's mesh_dp, mesh_view,
 # mesh_tile (JAX driver.py:117-122)
@@ -171,9 +171,9 @@ def replicas(devices, home, *trees) -> Dict[torch.device, tuple]:
 # ----------------------------------------------------------------------
 
 # rows per (stage, dp shard) and K1 launches per dp shard from hypothesis
-# scoring, since the last reset_dp_stats()
-DP_ROWS: collections.Counter = collections.Counter()
-DP_K1: collections.Counter = collections.Counter()
+# scoring, since the last profiling.COUNTERS.reset()
+DP_ROWS = profiling.COUNTERS.counter("shard.DP_ROWS")
+DP_K1 = profiling.COUNTERS.counter("shard.DP_K1")
 
 # A block starts at a multiple of its device's grain, so every row keeps
 # its place in the vector loops and tiles of the device's kernels: a
@@ -183,11 +183,6 @@ DP_K1: collections.Counter = collections.Counter()
 # differently, blocks of 1,024-row multiples do not; on the CPU a sum over
 # the 6 rows of a [6, B] tensor rounds its columns alike only in runs of 32.
 DP_GRAIN = {"cuda": 1024, "cpu": 32}
-
-
-def reset_dp_stats() -> None:
-    DP_ROWS.clear()
-    DP_K1.clear()
 
 
 def dp_grain(devices) -> int:

@@ -25,7 +25,6 @@ instead). The CPU computes the live rows alone, unpadded.
 
 from __future__ import annotations
 
-import collections
 from typing import Dict, NamedTuple, Optional, Protocol, Tuple
 
 import torch
@@ -34,7 +33,6 @@ from ..core import grid as gridmod
 from ..core.patches import PatchTable, count_valid
 from ..geometry import camera as cam
 from ..image.scene import Scene
-from ..ops import cuda_ncc
 from ..ops import ncc as nccops
 from ..parallel import shard as sh
 from ..utils import profiling
@@ -215,10 +213,10 @@ def generate_hypotheses(scene: Scene, table: PatchTable, grid: gridmod.GridState
         if s == e:
             continue
         block = lambda xs: tuple(x[s:e].to(d) for x in xs)  # noqa: E731
-        k1 = cuda_ncc.LAUNCHES["ungrouped"]
+        before = profiling.COUNTERS.snapshot()
         parts.append(_hypotheses(*on[d], block(donors), gates and block(gates), axis,
                                  direction, p))
-        sh.DP_K1[i] += cuda_ncc.LAUNCHES["ungrouped"] - k1
+        sh.DP_K1[i] += profiling.COUNTERS.since(before)["cuda_ncc.LAUNCHES"]["ungrouped"]
     return tuple(sh.all_gather_rows([pt[j] for pt in parts], home) for j in range(5))
 
 
@@ -401,17 +399,13 @@ def insert_patches(table: PatchTable, out: GauntletOut, dp_devices=None) -> Patc
                         for f in range(len(table))))
 
 
-# How the gauntlet's chunks ran since the last reset_graph_stats():
+# How the gauntlet's chunks ran since the last profiling.COUNTERS.reset():
 # "captures" and "replays" of CUDA graphs (every graphed chunk is one
 # replay, its key's first right after its capture), "eager_<reason>"
 # per chunk run op by op (graph_rule's reasons, and "no_runner" for a
 # call without an engine's runner) and "pad_rows", the dead rows that
 # filled ragged chunks to p.chunk rows.
-GRAPHS: collections.Counter = collections.Counter()
-
-
-def reset_graph_stats() -> None:
-    GRAPHS.clear()
+GRAPHS = profiling.COUNTERS.counter("propagate.GRAPHS")
 
 
 def graph_rule(device, dp_devices, scene: Scene, p: PropagateParams) -> Optional[str]:
@@ -449,8 +443,7 @@ class _Graph(NamedTuple):
     graph: object        # torch.cuda.CUDAGraph
     out: GauntletOut     # its static outputs
     scene: Scene         # held, so that the key's id(scene) stays its own
-    launches: Dict[str, int]                    # cuda_ncc.LAUNCHES increments
-    windows: Dict[str, collections.Counter]     # cuda_ncc.WINDOWS increments
+    counts: dict         # the capture's increments of profiling.COUNTERS
 
 
 class _GauntletGraphs:
@@ -462,9 +455,9 @@ class _GauntletGraphs:
     every later chunk replays. The graphs read static buffers: the scene
     by reference, the round's grid and table copied in once a round
     (``load``), the chunk's padded inputs copied in before each replay.
-    The sampler's launch counters (``cuda_ncc.LAUNCHES`` / ``WINDOWS``),
-    which its Python wrappers bump while a graph is captured, take the
-    capture's increments again at every later replay. The graphs share
+    Every registered counter (``profiling.COUNTERS``; the sampler's
+    wrappers bump its launch counters while a graph is captured) takes
+    the capture's increments again at every later replay. The graphs share
     one memory pool: a replay writes all it reads but the static buffers,
     and its outputs are read before the next replay. ``release`` frees
     them; the engine's ``close`` calls it."""
@@ -510,10 +503,7 @@ class _GauntletGraphs:
                 entry = self.graphs[key] = self._capture(scene, grid, table, static, args)
             GRAPHS["captures"] += 1
         else:
-            for k, v in entry.launches.items():
-                cuda_ncc.LAUNCHES[k] += v
-            for k, c in entry.windows.items():
-                cuda_ncc.WINDOWS[k].update(c)
+            profiling.COUNTERS.credit(entry.counts)
         with profiling.span("replay"):
             entry.graph.replay()
         GRAPHS["replays"] += 1
@@ -524,8 +514,7 @@ class _GauntletGraphs:
         dev = self.device
         if self.stream is None:
             self.stream = torch.cuda.Stream(dev)
-        launches = dict(cuda_ncc.LAUNCHES)
-        windows = {k: collections.Counter(v) for k, v in cuda_ncc.WINDOWS.items()}
+        before = profiling.COUNTERS.snapshot()
         graph = torch.cuda.CUDAGraph()
         self.stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.device(dev), torch.cuda.stream(self.stream):
@@ -536,9 +525,7 @@ class _GauntletGraphs:
                 graph.capture_end()
         torch.cuda.current_stream(dev).wait_stream(self.stream)
         self.pool = graph.pool()
-        return _Graph(graph, out, scene,
-                      {k: v - launches[k] for k, v in cuda_ncc.LAUNCHES.items()},
-                      {k: v - windows[k] for k, v in cuda_ncc.WINDOWS.items()})
+        return _Graph(graph, out, scene, profiling.COUNTERS.since(before))
 
     def release(self) -> None:
         """Free the graphs, their pool's tensors and the static buffers."""
@@ -575,7 +562,8 @@ def _gauntlet_chunked(scene, grid, table, coord, normal, images, ok,
     so the result is the unsharded one bit for bit. ``shard.DP_ROWS``
     counts the hypotheses each dp device took. The recorder sees a span
     ``chunk`` (``rows``; ``graphed`` on a replayed one, with ``capture``
-    and ``replay`` inside) per chunk and a sync at every host read."""
+    and ``replay`` inside) per chunk, and a sync at each host read: none
+    in a chunk, whose noise rows are one gather on the device."""
     H = coord.shape[0]
     C = min(p.chunk, H)
     n_chunks = (H + C - 1) // C
@@ -598,15 +586,16 @@ def _gauntlet_chunked(scene, grid, table, coord, normal, images, ok,
     )
     if live.numel() == 0:
         return out
-    cache: Dict[int, torch.Tensor] = {}
-    with profiling.sync("gauntlet.chunk_ids"):
-        live_chunks = torch.unique(live // C)
-    with profiling.sync("gauntlet.chunk_list"):
-        live_chunks = live_chunks.tolist()
+    has_live = torch.zeros(n_chunks, dtype=torch.bool, device=dev).index_fill_(0, live // C, 1)
+    with profiling.sync("gauntlet.chunks"):
+        live_chunks = [ch for ch, h in enumerate(has_live.tolist()) if h]
     profiling.note(chunks=(live.numel() + C - 1) // C)
-    for ch in live_chunks:
-        cache[ch] = noise.refine(ch, n_chunks, p.refine_rounds, C,
-                                 p.refine_cands).to(dev)
+    # row 0 zeros, which the padding rows draw, then the live JAX chunks'
+    # noise in ascending order: the j-th one's row r at 1 + j C + r
+    R, K = p.refine_rounds, p.refine_cands
+    noise_rows = torch.cat([torch.zeros((R, 1, K, 3), dtype=torch.float32, device=dev)] + [
+        noise.refine(ch, n_chunks, R, C, K).to(dev, torch.float32) for ch in live_chunks], 1)
+    first_row = torch.cumsum(has_live, 0) * C - (C - 1)
     devices = [dev] if not dp_devices else [torch.device(d) for d in dp_devices]
     if reason is None:
         graphs.load(grid, table)
@@ -618,20 +607,8 @@ def _gauntlet_chunked(scene, grid, table, coord, normal, images, ok,
         n = rows.numel()
         width = C if pad else n
         with profiling.span("chunk", rows=n):
-            ch_of, row_of = rows // C, rows % C
-            deltas = torch.zeros((p.refine_rounds, width, p.refine_cands, 3),
-                                 dtype=torch.float32, device=dev)
-            live_deltas = deltas[:, :n]
-            with profiling.sync("chunk.noise_ids"):
-                chs = torch.unique(ch_of)
-            with profiling.sync("chunk.noise_list"):
-                chs = chs.tolist()
-            for ch in chs:
-                m = ch_of == ch
-                with profiling.sync("chunk.noise_rows"):
-                    src = cache[ch][:, row_of[m]]
-                with profiling.sync("chunk.noise_put"):
-                    live_deltas[:, m] = src
+            idx = torch.nn.functional.pad(first_row[rows // C] + rows % C, (0, width - n))
+            deltas = noise_rows.index_select(1, idx)
             inputs = _chunk_inputs(coord, normal, images, ok, rows, width) + (deltas,)
             GRAPHS["pad_rows"] += width - n
             if reason is None:

@@ -71,7 +71,7 @@ from ..device import get_device
 from ..ops import cuda_ncc
 from ..pipeline import refine as rf
 from ..pipeline import views as vw
-from ..utils import synthetic
+from ..utils import profiling, synthetic
 
 LEVEL, WSIZE, TAU = 1, 7, 6
 A1 = math.radians(60.0)
@@ -202,7 +202,7 @@ def run(batch: int = 8192, rounds=None, rounds_lo=None, cands=None, luma: bool =
     if on_card:
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-    cuda_ncc.reset_launches()
+    profiling.COUNTERS.reset()
     t0 = time.time()
     first = call(rounds)
     if on_card:

@@ -67,6 +67,7 @@ def run(prefix: str, resume: str, max_patches: int = 1 << 18, reps: int = 3, dp:
     from ..pipeline import seed as sd
     from ..pipeline import views as vw
     from ..pipeline.driver import PMMVS
+    from ..utils import profiling
     from .bench_grid import stage_ms
     from .e2e_run import card_line
 
@@ -90,7 +91,7 @@ def run(prefix: str, resume: str, max_patches: int = 1 << 18, reps: int = 3, dp:
         return pr.TorchNoise(gen)
 
     def measure(fn):
-        cuda_ncc.reset_launches()
+        profiling.COUNTERS.reset()
         out = fn()
         launches = {"k1": cuda_ncc.LAUNCHES["ungrouped"], "k2": cuda_ncc.LAUNCHES["grouped"]}
         return out, dict(ms=stage_ms(fn, reps, dev), **launches)

@@ -188,7 +188,7 @@ def run(batch: int = 65536, reps: int = 3, luma: bool = False, group: int = 1, s
            "card": card_line() if on_card else None, "parts": {}, "scan_parts": {}}
     for name, fn in parts(luma, group).items():
         one = lambda fn=fn: fn(sc, views, coord, normal)  # noqa: E731
-        cuda_ncc.reset_launches()
+        profiling.COUNTERS.reset()
         value = float(one())
         p = {"value": value, "launches": {k: v for k, v in cuda_ncc.LAUNCHES.items() if v},
              "ms": None, "call_ms": None, "msamples_per_s": None, "device_kernels": None}

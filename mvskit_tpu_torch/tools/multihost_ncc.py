@@ -53,6 +53,7 @@ def main(argv=None) -> int:
     from mvskit_tpu_torch.pipeline import refine as rf
     from mvskit_tpu_torch.tools.ab_refine_chip import perturbed_starts, torch_deltas
     from mvskit_tpu_torch.tools.bench import A1, ASCALE, LEVEL, WSIZE, prep
+    from mvskit_tpu_torch.utils import profiling
     from mvskit_tpu_torch.utils.synthetic import plane_points, plane_scene
 
     dev = get_device(args.device)
@@ -88,7 +89,7 @@ def main(argv=None) -> int:
         ref_polish, searched = refine(scene), refine(scene, 0)
         mesh = mh.global_view_mesh([dev] * args.local_shards)
         gscene = mh.enable_view_sharding_global(scene, mesh)
-        cuda_ncc.reset_launches()
+        profiling.COUNTERS.reset()
         got = mh.to_host_replicated(score(gscene))
         got_polish = refine(gscene)
         launches = {k: v for k, v in cuda_ncc.LAUNCHES.items() if v}

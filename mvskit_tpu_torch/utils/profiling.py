@@ -90,6 +90,47 @@ class Counters:
         }
 
 
+class CounterRegistry:
+    """The program's counters by name, each a ``collections.Counter`` that
+    the registering module owns and bumps (a thread other than the main
+    one under ``lock``). ``since`` gives every counter's increments after
+    a ``snapshot`` (every thread's), and ``credit`` adds such increments
+    back, as a replayed CUDA graph repeats what its capture counted."""
+
+    def __init__(self):
+        self.counters: Dict[str, collections.Counter] = {}
+        self._zeros: Dict[str, dict] = {}
+        self.lock = threading.Lock()
+
+    def counter(self, name: str, keys: Iterable = ()) -> collections.Counter:
+        """A Counter registered as `name`; its `keys` stay at 0 through a reset."""
+        self._zeros[name] = dict.fromkeys(keys, 0)
+        c = self.counters[name] = collections.Counter(self._zeros[name])
+        return c
+
+    def reset(self) -> None:
+        with self.lock:
+            for name, c in self.counters.items():
+                c.clear()
+                c.update(self._zeros[name])
+
+    def snapshot(self) -> Dict[str, collections.Counter]:
+        return self.since({})
+
+    def since(self, snap: Dict[str, collections.Counter]) -> Dict[str, collections.Counter]:
+        with self.lock:
+            return {name: c - snap.get(name, collections.Counter())
+                    for name, c in self.counters.items()}
+
+    def credit(self, increments: Dict[str, collections.Counter]) -> None:
+        with self.lock:
+            for name, inc in increments.items():
+                self.counters[name].update(inc)
+
+
+COUNTERS = CounterRegistry()
+
+
 @contextlib.contextmanager
 def trace(log_dir: Optional[str]):
     """``torch.profiler`` over the block (CPU, and CUDA where a card is

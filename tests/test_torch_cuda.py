@@ -47,11 +47,13 @@ equal the same chunks run op by op at the same padded shape, bit for
 bit in every output, on RGB, luma (rgb_tail 2) and 2-illumination
 search with the depth-2 check off and on, and again on the next round's
 table and grid without a new capture; the sampler's launch counters
-read the same, each replay crediting its capture's windows."""
+read the same, each replay crediting its capture's counts."""
 
 import numpy as np
 import pytest
 import torch
+
+from mvskit_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -101,7 +103,7 @@ def test_kernel_forms_match_plain(card):
 
     _, _, scene = synthetic.plane_scene(n_views=6, width=160, height=120, device=card)
     args = _windows(scene)
-    cuda_ncc.reset_launches()
+    profiling.COUNTERS.reset()
     ung, fit = cuda_ncc.sample_windows(scene, *args, WSIZE, group=1)
     grp, _ = cuda_ncc.sample_windows(scene, *args, WSIZE, group=32)
     odd, _ = cuda_ncc.sample_windows(scene, *(a[:-1] for a in args), WSIZE, group=32)
@@ -124,7 +126,7 @@ def test_luma_kernel_forms_match_plain_bitwise(card):
 
     _, _, scene = synthetic.plane_scene(n_views=6, width=160, height=120, device=card)
     args = _windows(scene)
-    cuda_ncc.reset_launches()
+    profiling.COUNTERS.reset()
     ung, fit = cuda_ncc.sample_windows(scene, *args, WSIZE, group=1, luma=True)
     grp, _ = cuda_ncc.sample_windows(scene, *args, WSIZE, group=32, luma=True)
     odd, _ = cuda_ncc.sample_windows(scene, *(a[:-1] for a in args), WSIZE, group=32,
@@ -149,7 +151,7 @@ def test_fused_forms_match_grouped_and_plain_bitwise(card):
     args = _windows(scene)
     for luma, plain_fn in ((False, cuda_ncc.sample_windows_plain),
                            (True, cuda_ncc.sample_windows_luma_plain)):
-        cuda_ncc.reset_launches()
+        profiling.COUNTERS.reset()
         ung, _ = cuda_ncc.sample_windows(scene, *args, WSIZE, luma=luma)
         for group in (2, 32, 128):
             fused, fit = cuda_ncc.sample_windows(scene, *args, WSIZE, group=group,
@@ -175,7 +177,7 @@ def test_ablation_switches_match_plain_bitwise(card):
 
     _, _, scene = synthetic.plane_scene(n_views=6, width=160, height=120, device=card)
     cases = ((WSIZE, ((1, False), (32, False), (32, True))), (5, ((32, False),)))
-    cuda_ncc.reset_launches()
+    profiling.COUNTERS.reset()
     for wsize, forms in cases:
         args = _windows(scene, n_patch=16, wsize=wsize)
         for ablate in cuda_ncc.ABLATIONS[1:]:
@@ -215,7 +217,7 @@ def test_grouped_form_every_size_and_group_bitwise(card, luma):
     _, _, scene = synthetic.plane_scene(n_views=6, width=160, height=120, device=card)
     plain_fn = cuda_ncc.sample_windows_luma_plain if luma else cuda_ncc.sample_windows_plain
     form = "luma_grouped" if luma else "grouped"
-    cuda_ncc.reset_launches()
+    profiling.COUNTERS.reset()
     grouped = 0
     for wsize in (5, 7, 9, 15):
         args = _windows(scene, wsize=wsize)
@@ -286,7 +288,7 @@ def test_fused_form_every_size_and_group_bitwise(card, luma):
 
     _, _, scene = synthetic.plane_scene(n_views=6, width=160, height=120, device=card)
     form = "luma_fused" if luma else "fused"
-    cuda_ncc.reset_launches()
+    profiling.COUNTERS.reset()
     fused = 0
     for wsize in (5, 7, 9, 15):
         args = _windows(scene, wsize=wsize)
@@ -356,7 +358,7 @@ def test_edge_lattices_every_form_and_switch_bitwise(card):
 
     _, _, scene = synthetic.plane_scene(n_views=6, width=160, height=120, device=card)
     args = bench_kernel.edge_windows(scene, 2048)
-    cuda_ncc.reset_launches()
+    profiling.COUNTERS.reset()
     for wsize in (WSIZE, 5):
         for luma in (False, True):
             for ablate in cuda_ncc.ABLATIONS:
@@ -426,7 +428,7 @@ def test_ungrouped_form_every_batch_bitwise(card, wsize, luma):
     grp, _ = cuda_ncc.sample_windows(scene, *args, wsize, group=32, luma=luma)
     tile = cuda_ncc.ungrouped_plan(full, wsize, luma)["tile"]
     ragged = 0
-    cuda_ncc.reset_launches()
+    profiling.COUNTERS.reset()
     for B in sorted({1, 3, tile - 1, tile, tile + 1, full}):
         sub = tuple(a[:B] for a in args)
         plan = cuda_ncc.ungrouped_plan(B, wsize, luma)
@@ -472,7 +474,7 @@ def test_ungrouped_ablation_switches_bitwise(card):
     from mvskit_tpu_torch.utils import synthetic
 
     _, _, scene = synthetic.plane_scene(n_views=6, width=160, height=120, device=card)
-    cuda_ncc.reset_launches()
+    profiling.COUNTERS.reset()
     for wsize in (WSIZE, 5):
         args = tuple(a[:999] for a in _windows(scene, n_patch=16, wsize=wsize))
         for ablate in cuda_ncc.ABLATIONS[1:]:
@@ -540,7 +542,7 @@ def test_pipeline_on_card_tracks_cpu(card, tmp_path):
         cfg.max_patches, cfg.donor_budget, cfg.gauntlet_chunk = 4096, 512, 256
         cfg.refine_cands, cfg.prop_rounds, cfg.n_iterations = 4, 2, 2
         noise = TorchNoise(torch.Generator().manual_seed(0))  # CPU draws
-        cuda_ncc.reset_launches()
+        profiling.COUNTERS.reset()
         e = PMMVS(cfg, device=dev, noise=noise, log=lambda *a: None)
         e.seed()
         e.run(write_snapshots=False)
@@ -668,7 +670,7 @@ def test_refine_kernel_path_equals_plain_path(card, luma):
     for use_kernel in (True, False):
         gen = torch.Generator(device=card).manual_seed(0)
         sc = dataclasses.replace(scene, use_kernel=use_kernel)
-        cuda_ncc.reset_launches()
+        profiling.COUNTERS.reset()
         out.append(bench.search(sc, coord, normal, images, dscale, generator=gen, rounds=6,
                                 cands=32, luma=luma))
         torch.cuda.synchronize()
@@ -697,8 +699,7 @@ def test_view_sharded_launch_every_form_bitwise(card, k, luma, group):
             dy.reshape(T, -1, 2), lvl.reshape(T, -1), WSIZE, 0, luma, group)
     want, _, _ = ncc.sample_windows_raw(scene, *args)
     vs = sh.enable_view_sharding(scene, sh.make_mesh(k, "view", devices=[card] * k))
-    cuda_ncc.reset_launches()
-    ncc.reset_shard_stats()
+    profiling.COUNTERS.reset()
     with profiling.tracing() as trace:
         got, fit, _ = ncc._sample_windows_view_sharded(vs, *args)
     torch.cuda.synchronize()
@@ -745,7 +746,7 @@ def _check_backward(scene, args, cot, wsize, luma):
     finite patterns (the float32 plain version's patterns too)."""
     from mvskit_tpu_torch.ops import cuda_ncc
 
-    cuda_ncc.reset_launches()
+    profiling.COUNTERS.reset()
     got = cuda_ncc.sample_windows_grad(scene, *args, wsize, cot, luma=luma)
     again = cuda_ncc.sample_windows_grad(scene, *args, wsize, cot, luma=luma)
     torch.cuda.synchronize()
@@ -853,7 +854,7 @@ def test_backward_kernel_is_the_autograd_of_the_launch(card):
     (idx, lvl, tl, dx, dy), cot = _grad_windows(scene, "plane", WSIZE, False)
     direct = cuda_ncc.sample_windows_grad(scene, idx, lvl, tl, dx, dy, WSIZE, cot)
     leaves = [t.clone().requires_grad_() for t in (tl, dx, dy)]
-    cuda_ncc.reset_launches()
+    profiling.COUNTERS.reset()
     out, _ = cuda_ncc.sample_windows(scene, idx, lvl, *leaves, WSIZE, group=32)
     grads = torch.autograd.grad(out, leaves, cot)
     assert cuda_ncc.LAUNCHES == dict(_no_launches(), grouped=1, grad=1)
@@ -881,7 +882,7 @@ def test_polished_refine_kernel_path_tracks_plain_path(card):
     for use_kernel in (True, False):
         gen = torch.Generator(device=card).manual_seed(0)
         sc = dataclasses.replace(scene, use_kernel=use_kernel)
-        cuda_ncc.reset_launches()
+        profiling.COUNTERS.reset()
         out.append(bench.search(sc, coord, normal, images, dscale, generator=gen, rounds=3,
                                 cands=8, grad_steps=4))
         torch.cuda.synchronize()
@@ -909,7 +910,7 @@ def test_polished_refine_on_view_shards_equals_unsharded(card, k):
     out = []
     for sc in (scene, vs):
         gen = torch.Generator(device=card).manual_seed(0)
-        cuda_ncc.reset_launches()
+        profiling.COUNTERS.reset()
         out.append(bench.search(sc, coord, normal, images, dscale, generator=gen, rounds=2,
                                 cands=8, grad_steps=2))
         assert cuda_ncc.LAUNCHES["grad"] > 0
@@ -923,7 +924,8 @@ def test_graphed_gauntlet_equals_eager(card, tmp_path, mode, depth2):
     """Two rounds' chunks through the engine's runner against the same
     chunks op by op at the padded shape: every GauntletOut field bit for
     bit, one capture for both rounds, and the same launch counters, each
-    replay crediting the capture's windows."""
+    replay crediting the capture's windows (its stored increments of
+    every registered counter)."""
     import collections
 
     from gauntlet_case import ChunkNoise, bits, make_engine, round_inputs
@@ -944,8 +946,7 @@ def test_graphed_gauntlet_equals_eager(card, tmp_path, mode, depth2):
             hyps.append(ok)
             runs = []
             for graphs in (None, runner):
-                cuda_ncc.reset_launches()
-                pr.reset_graph_stats()
+                profiling.COUNTERS.reset()
                 out = pr._gauntlet_chunked(e.scene, grid, table, *hyps, ChunkNoise(rnd, card),
                                            p, 0.6, 0.4, True, 2.5, graphs=graphs)
                 torch.cuda.synchronize()
@@ -962,8 +963,9 @@ def test_graphed_gauntlet_equals_eager(card, tmp_path, mode, depth2):
                                              pad_rows=g0["pad_rows"]), g1
             assert l1 == l0 and w1 == w0
             (entry,) = runner.graphs.values()
-            assert w1 == {k: collections.Counter({b: c * chunks for b, c in v.items()})
-                          for k, v in entry.windows.items()}
+            assert w1 == {k: collections.Counter({b: c * chunks for b, c in
+                                                  entry.counts[f"cuda_ncc.WINDOWS/{k}"].items()})
+                          for k in w1}
             e.table = pr.insert_patches(table, graphed)
     finally:
         runner.release()

@@ -39,6 +39,7 @@ from mvskit_tpu_torch.pipeline import expand as tex
 from mvskit_tpu_torch.pipeline import filters as tfl
 from mvskit_tpu_torch.pipeline import propagate as tpr
 from mvskit_tpu_torch.pipeline import views as tvw
+from mvskit_tpu_torch.utils import profiling
 from torch_replay import jax_scene_to_torch, jax_table_to_torch
 
 LEVEL, CSIZE, WSIZE, TAU, MIN_NUM = 1, 2, 7, 6, 3
@@ -318,7 +319,7 @@ def test_blocks_without_live_rows(sp):
     blocks = tsh.deal_rows("x", 4, dp(8))
     assert [e - s for _, _, s, e in blocks] == [4, 0, 0, 0, 0, 0, 0, 0]
     assert [e - s for _, _, s, e in tsh.deal_rows("x", 100, dp(3))] == [64, 32, 4]
-    tsh.reset_dp_stats()
+    profiling.COUNTERS.reset()
 
 
 # ----------------------------------------------------------------------
@@ -338,20 +339,20 @@ def dp_rows_by_stage():
 
 def test_counter_every_shard_every_stage(sp):
     _, _, ts, tt, holes = sp
-    tsh.reset_dp_stats()
+    profiling.COUNTERS.reset()
     _round(ts, holes, 3)
     rows = dp_rows_by_stage()
     for stage in ROUND_STAGES:
         assert sorted(rows[stage]) == [0, 1, 2] and min(rows[stage].values()) > 0, stage
     # the 512 capacity rows in units of 32 rows (shard.DP_GRAIN on the CPU)
     assert rows["insert"] == {0: 192, 1: 160, 2: 160}
-    tsh.reset_dp_stats()
+    profiling.COUNTERS.reset()
     tfl.run_filters(ts, tt, **FILTER_KW, row_limit=256, dp_devices=dp(3))
     rows = dp_rows_by_stage()
     for stage in FILTER_STAGES:
         assert sorted(rows[stage]) == [0, 1, 2] and min(rows[stage].values()) > 0, stage
     assert rows["exact"] == {0: 96, 1: 96, 2: 64}
-    tsh.reset_dp_stats()
+    profiling.COUNTERS.reset()
     assert not tsh.DP_ROWS and not tsh.DP_K1
 
 
@@ -365,7 +366,7 @@ def test_cuda_blocks_are_whole_grains():
                                                  (12288, 16384)]
     blocks = tsh.deal_rows("x", 45177, cuda)
     assert [e - s for _, _, s, e in blocks] == [12288, 11264, 11264, 10361]
-    tsh.reset_dp_stats()
+    profiling.COUNTERS.reset()
 
 
 # ----------------------------------------------------------------------

@@ -21,6 +21,7 @@ from mvskit_tpu_torch.config import MVSConfig
 from mvskit_tpu_torch.io import ply
 from mvskit_tpu_torch.parallel import shard as sh
 from mvskit_tpu_torch.pipeline.driver import PMMVS
+from mvskit_tpu_torch.utils import profiling
 from test_torch_pipeline import assert_alive_tracks_jax, run_pair
 
 
@@ -75,7 +76,7 @@ def test_mesh_driver_bit_equal(request, mesh):
         dataset, base_cloud = request.getfixturevalue("dataset_dp3")
     else:
         dataset, base_cloud = (request.getfixturevalue(f) for f in ("dataset", "base_cloud"))
-    sh.reset_dp_stats()
+    profiling.COUNTERS.reset()
     eng, got = _run(_cfg(dataset, mesh_dp=dp, mesh_view=view, mesh_tile=tile))
     assert eng.mesh.shape == {"dp": dp, "view": view, "tile": tile}
     assert (eng.scene.view_mesh is not None) == (view > 1)

@@ -6,18 +6,29 @@ view-sharded scene, the polish) and engages on a lone CUDA device; a
 padded chunk's extra rows copy its first row and enter dead, and its
 live rows keep their bits; the CPU runs its chunks unpadded and op by op,
 each chunk's live rows alone, as before; the runner's static buffers take
-each round's grid and table. The graphs themselves run only on a card
+each round's grid and table. The counter registry that a replay credits
+(``utils/profiling.py`` ``COUNTERS``): one reset clears every counter,
+increments credited back double, and ``patch_io.WRITERS`` counts from
+two threads. The graphs themselves run only on a card
 (``tests/test_torch_cuda.py -k graphed``)."""
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
+import sys
+import threading
+
+import numpy as np
 
 import pytest
 import torch
 
 from gauntlet_case import ChunkNoise, bits, make_engine, round_inputs
+from mvskit_tpu_torch.io import patch_io
+from mvskit_tpu_torch.ops import cuda_ncc
+from mvskit_tpu_torch.ops import ncc as nccops
 from mvskit_tpu_torch.parallel import shard as sh
 from mvskit_tpu_torch.pipeline import propagate as pr
 from mvskit_tpu_torch.utils import profiling
@@ -112,7 +123,7 @@ def test_cpu_chunks_run_unpadded_op_by_op(engine, hyps, runner):
     C = 64
     p = engine.prop_params._replace(chunk=C)
     noise = ChunkNoise(2, "cpu")
-    pr.reset_graph_stats()
+    profiling.COUNTERS.reset()
     out = pr._gauntlet_chunked(engine.scene, grid, table, coord, normal, images, ok, noise,
                                p, *THRESHOLDS,
                                graphs=pr._GauntletGraphs("cpu") if runner else None)
@@ -153,3 +164,84 @@ def test_runner_buffers_take_each_round(hyps):
         assert torch.equal(bits(buf), bits(src)) and buf.data_ptr() != src.data_ptr()
     runner.release()
     assert runner.state is None and not runner.buffers and not runner.graphs
+
+
+def _bump(n: int) -> None:
+    """Add n to one key of every registered counter (WINDOWS: of two forms)."""
+    cuda_ncc.LAUNCHES["grouped"] += n
+    cuda_ncc.WINDOWS["grouped"][4096] += n
+    cuda_ncc.WINDOWS["ungrouped"][512] += n
+    nccops.SHARD_CALLS[0, "grouped"] += n
+    nccops.SHARD_WINDOWS[0, "grouped"] += n
+    sh.DP_ROWS["insert", 1] += n
+    sh.DP_K1[1] += n
+    pr.GRAPHS["replays"] += n
+    patch_io.WRITERS["native"] += n
+
+
+def test_one_reset_clears_every_counter():
+    registered = {"cuda_ncc.LAUNCHES": cuda_ncc.LAUNCHES, "ncc.SHARD_CALLS": nccops.SHARD_CALLS,
+                  "ncc.SHARD_WINDOWS": nccops.SHARD_WINDOWS, "shard.DP_ROWS": sh.DP_ROWS,
+                  "shard.DP_K1": sh.DP_K1, "propagate.GRAPHS": pr.GRAPHS,
+                  "patch_io.WRITERS": patch_io.WRITERS,
+                  **{f"cuda_ncc.WINDOWS/{k}": c for k, c in cuda_ncc.WINDOWS.items()}}
+    assert all(profiling.COUNTERS.counters[k] is c for k, c in registered.items())
+    _bump(3)
+    windows = dict(cuda_ncc.WINDOWS)
+    profiling.COUNTERS.reset()
+    # LAUNCHES keeps every form at 0, WINDOWS every form's own Counter, empty
+    assert cuda_ncc.LAUNCHES == dict.fromkeys(cuda_ncc.LAUNCHES, 0)
+    assert cuda_ncc.WINDOWS.keys() == cuda_ncc.LAUNCHES.keys() and "grouped" in cuda_ncc.LAUNCHES
+    assert all(cuda_ncc.WINDOWS[k] is c and not c for k, c in windows.items())
+    assert all(not c for k, c in registered.items() if k != "cuda_ncc.LAUNCHES")
+
+
+def test_credited_increments_double():
+    """The increments since a snapshot, credited back, count twice; what
+    was counted before the snapshot is not among them."""
+    profiling.COUNTERS.reset()
+    _bump(5)
+    before = profiling.COUNTERS.snapshot()
+    _bump(2)
+    inc = profiling.COUNTERS.since(before)
+    assert inc["cuda_ncc.LAUNCHES"] == collections.Counter(grouped=2)
+    assert inc["cuda_ncc.WINDOWS/ungrouped"] == collections.Counter({512: 2})
+    assert not inc["cuda_ncc.WINDOWS/fused"]
+    assert inc["shard.DP_ROWS"] == collections.Counter({("insert", 1): 2})
+    profiling.COUNTERS.credit(inc)
+    again = profiling.COUNTERS.since(before)
+    assert again == {name: c + c for name, c in inc.items()}
+    assert cuda_ncc.LAUNCHES["grouped"] == 5 + 2 * 2
+    assert cuda_ncc.WINDOWS["grouped"] == collections.Counter({4096: 5 + 2 * 2})
+    assert pr.GRAPHS == collections.Counter(replays=9)
+    profiling.COUNTERS.reset()
+
+
+def test_writers_count_from_two_threads(tmp_path):
+    """Two threads writing patch files at once, the interpreter switching
+    threads every microsecond, while this one takes snapshots: every
+    file counted."""
+    profiling.COUNTERS.reset()
+    empty = np.zeros((0, 4), np.float32)
+    n = 300
+
+    def writes(t):
+        for i in range(n):
+            patch_io.write_patch_file(str(tmp_path / f"{t}_{i}.patch"), empty, empty,
+                                      empty[:, 0], empty[:, 0], empty[:, 0], [], [])
+
+    threads = [threading.Thread(target=writes, args=(t,)) for t in range(2)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        while any(t.is_alive() for t in threads):
+            profiling.COUNTERS.snapshot()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert patch_io.WRITERS == collections.Counter(python=2 * n)
+    profiling.COUNTERS.reset()

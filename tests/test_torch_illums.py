@@ -34,6 +34,7 @@ from mvskit_tpu_torch.image.scene import scene_from_arrays as tscene_from_arrays
 from mvskit_tpu_torch.ops import cuda_ncc
 from mvskit_tpu_torch.ops import ncc as tncc
 from mvskit_tpu_torch.pipeline import refine as trf
+from mvskit_tpu_torch.utils import profiling
 from test_torch_ncc import _t
 from test_torch_pipeline import assert_alive_tracks_jax, assert_quality_tracks_jax, run_pair
 from torch_replay import jax_scene_to_torch, refine_deltas
@@ -174,7 +175,7 @@ def test_multi_illum_cli_cpu(tmp_path):
     tsyn.write_dataset(prefix, n_views=6, width=160, height=120, n_seeds=48, nillums=3)
     assert TMVSConfig.from_option_file(prefix).nillums == 3
     report, out = str(tmp_path / "report.json"), str(tmp_path / "final")
-    cuda_ncc.reset_launches()
+    profiling.COUNTERS.reset()
     rc = cli.main([prefix, "--device", "cpu", "--iterations", "1",
                    "--prop-rounds", "2", "--max-patches", "4096", "--donor-budget",
                    "512", "--chunk", "256", "--refine-rounds", "3", "--refine-cands", "4",

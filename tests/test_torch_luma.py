@@ -41,6 +41,7 @@ from mvskit_tpu_torch.ops import cuda_ncc
 from mvskit_tpu_torch.ops import ncc as tncc
 from mvskit_tpu_torch.ops import sampling as tsmp
 from mvskit_tpu_torch.pipeline import refine as trf
+from mvskit_tpu_torch.utils import profiling
 from mvskit_tpu_torch.utils import synthetic as tsyn
 from test_torch_ncc import _geometry, _t, _views
 from test_torch_pipeline import assert_alive_tracks_jax, assert_quality_tracks_jax, run_pair
@@ -118,7 +119,7 @@ def test_luma_windows_and_costs_match_jax(scenes, group, wsize):
         jnp.asarray(lvl.reshape(T, B)), wsize, 0, True, group,
     )
     assert ch == 1 and np.asarray(jfit).all()
-    cuda_ncc.reset_launches()
+    profiling.COUNTERS.reset()
     out, fit = cuda_ncc.sample_windows(ts, _t(idx), _t(lvl), _t(tl), _t(dx), _t(dy),
                                        wsize, group=group, luma=True)
     assert all(v == 0 for v in cuda_ncc.LAUNCHES.values())  # CPU: plain version

@@ -26,6 +26,7 @@ from mvskit_tpu.ops import pallas_ncc as pk
 from mvskit_tpu.utils import synthetic as jsyn
 from mvskit_tpu_torch.ops import cuda_ncc
 from mvskit_tpu_torch.ops import ncc as tncc
+from mvskit_tpu_torch.utils import profiling
 from test_golden_parity import OracleCam, _planes_by_view, oracle_cost
 from torch_replay import jax_scene_to_torch
 
@@ -232,7 +233,7 @@ def test_wrapper_checks_and_counts_no_cpu_launch(scenes):
     lvl = torch.ones(B, dtype=torch.int32)
     tl = torch.full((B, 2), 20.0)
     d = torch.tensor([[1.0, 0.0]] * B)
-    cuda_ncc.reset_launches()
+    profiling.COUNTERS.reset()
     out, fit = cuda_ncc.sample_windows(ts, idx, lvl, tl, d, d.flip(1).contiguous(), WSIZE)
     assert out.shape == (B, 3 * S) and fit.all()
     assert all(v == 0 for v in cuda_ncc.LAUNCHES.values())

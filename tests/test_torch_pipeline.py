@@ -22,6 +22,7 @@ from mvskit_tpu_torch import cli
 from mvskit_tpu_torch.config import MVSConfig as TMVSConfig
 from mvskit_tpu_torch.ops import cuda_ncc
 from mvskit_tpu_torch.pipeline.driver import PMMVS as TPMMVS
+from mvskit_tpu_torch.utils import profiling
 from torch_replay import JaxReplayNoise
 
 ITERS = 2
@@ -141,7 +142,7 @@ def test_cli_cpu_filter_only_and_report(runs, tmp_path):
         os.path.join(prefix, "ply", "00000002"), export_ply=False, export_patch=True)
     out = str(tmp_path / "final")
     report = str(tmp_path / "report.json")
-    cuda_ncc.reset_launches()
+    profiling.COUNTERS.reset()
     rc = cli.main([prefix, "--device", "cpu", "--filter-only", "--resume-iter", "2",
                    "--export-patch", "--out", out, "--report", report])
     assert rc == 0

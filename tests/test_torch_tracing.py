@@ -169,6 +169,17 @@ def test_span_tree(traced_run):
     assert summary["propagate/round"]["syncs"] > 0
 
 
+def test_no_sync_inside_a_chunk(traced_run):
+    """A chunk gathers its noise rows on the device: no sync span of the
+    run has a ``chunk`` span among its ancestors (run_gauntlet on one
+    device opens none)."""
+    trace, _ = traced_run
+    paths = trace.paths()
+    syncs = [paths[s.id].split("/") for s in trace.spans if s.kind == "sync"]
+    assert ["propagate", "round", "gauntlet", "gauntlet.chunks"] in syncs
+    assert not [p for p in syncs if "chunk" in p[:-1]]
+
+
 STAGES = {"pre", "refine", "post", "views", "check"}
 
 
@@ -206,7 +217,7 @@ def test_card_chunks_replay_graphs(tmp_path):
     synthetic.write_dataset(prefix, n_views=6, width=160, height=120, n_seeds=256)
     cfg = _config(prefix, n_iterations=2, prop_rounds=2, donor_budget=512,
                   gauntlet_chunk=256)
-    pr.reset_graph_stats()
+    profiling.COUNTERS.reset()
     with profiling.tracing() as trace:
         engine = PMMVS(cfg, device="cuda", log=lambda *a: None)
         try:

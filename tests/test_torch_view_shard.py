@@ -95,7 +95,7 @@ def test_view_sharded_texs_match(sp, k, mode):
     args = (_t(v), _t(c), _t(n), LEVEL, WSIZE, A1, (0,), luma, group)
     vs = _vshard(ts, k)
     assert vs.view_mesh is not None and len(vs.view_shards) == k
-    tncc.reset_shard_stats()
+    profiling.COUNTERS.reset()
     with profiling.tracing() as trace:
         got_t, got_v = tncc.texs_for_views_illums(vs, *args)[0]
     want_t, want_v = tncc.texs_for_views_illums(ts, *args)[0]
