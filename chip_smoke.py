@@ -710,6 +710,17 @@ def check_quality(tag, m, limits):
         raise AssertionError(f"{tag}: quality below the limits {limits}: {m}")
 
 
+def check_pyramids(tag, loads):
+    """scene.PYRAMIDS since the counters' last reset: `loads` scenes
+    whose planes were built on their device, none from host planes."""
+    from mvskit_tpu_torch.image import scene as sc
+
+    got = dict(sc.PYRAMIDS)
+    log(f"[{tag}] scene.PYRAMIDS {json.dumps(got)}")
+    if got != {"device": loads, "host": 0}:
+        raise AssertionError(f"{tag}: scene.PYRAMIDS {got}, want {loads} built on the device")
+
+
 def cli_path(tag, dev, prefix, *flags):
     """The port's CLI on `prefix` (with extra `flags`) with the launch
     counters reset just before and read just after. Returns (report,
@@ -734,6 +745,7 @@ def cli_path(tag, dev, prefix, *flags):
     windows = path_windows()
     if rc != 0:
         raise AssertionError(f"{tag}: cli.main returned {rc}")
+    check_pyramids(tag, 1)
     with open(report_path) as f:
         report = json.load(f)
     if dev.type == "cuda":
@@ -807,6 +819,7 @@ def engine_path(tag, dev, prefix, scene=None, mesh_devices=None, **overrides):
         wall = time.time() - t0
         launches = dict(cuda_ncc.LAUNCHES)
         windows = path_windows()
+        check_pyramids(tag, 0 if scene is not None else 1)
         data = engine.collect()
     finally:
         engine.close()

@@ -12,6 +12,16 @@ holds, per pixel, the u8 luminances of its 2x2 bilinear support packed
 into one int32. They are the operands of the CUDA window sampler's RGB
 and luma forms, which read them flat; the JAX package's (8,128)-padded
 per-level kernel planes have no counterpart here.
+
+``scene_from_arrays`` builds all three on the scene's device from the
+images uploaded once: one ``downsample_once`` step a level over every
+view and illumination, then the packers' torch forms. Every tap and
+partial sum of the step is a multiple of 1/64 under 256, and the luma
+sum rounds each product and each addition to float32 alone, as numpy
+does, so the planes equal the numpy functions' (``build_pyramid``,
+``pack_rgb``, ``pack_luma_quad``) bit for bit on any device.
+``scene_from_planes`` takes planes built on the host (interop).
+``PYRAMIDS`` counts the scenes each way built.
 """
 
 from __future__ import annotations
@@ -28,10 +38,14 @@ from ..utils import profiling
 from . import decode
 
 # ----------------------------------------------------------------------
-# pyramid construction (host side, numpy). level_dims, downsample_once,
+# pyramid construction. level_dims, downsample_once's numpy form,
 # build_pyramid, build_mask_pyramid and load_visdata are copied from
 # mvskit_tpu/image/scene.py, which imports jax.
 # ----------------------------------------------------------------------
+
+# scenes whose planes scene_from_arrays built on their device, and
+# scenes handed planes built on the host (scene_from_planes)
+PYRAMIDS = profiling.COUNTERS.counter("scene.PYRAMIDS", ("device", "host"))
 
 _K1D = np.array([1.0, 3.0, 3.0, 1.0])
 _K2D = np.outer(_K1D, _K1D) / 64.0
@@ -46,14 +60,18 @@ def level_dims(width: int, height: int, max_level: int) -> Tuple[Tuple[int, ...]
     return tuple(ws), tuple(hs)
 
 
-def downsample_once(img: np.ndarray, filter: int = 0) -> np.ndarray:
-    """One pyramid level step on a [H, W, C] float image.
+def downsample_once(img, filter: int = 0):
+    """One pyramid level step on a [H, W, ...] float image: a numpy
+    array, or a torch tensor (every view and illumination at once in the
+    trailing axes; the result on its device).
 
     filter mirrors the reference (image.cpp:284-298):
       0 = [1 3 3 1]^2 weighted average (the live path),
       1 = max over the 4x4 support,
       2 = min over the 4x4 support.
     Returns the unquantized float result (caller re-quantizes)."""
+    if isinstance(img, torch.Tensor):
+        return _downsample_tensor(img, filter)
     h, w = img.shape[:2]
     ho, wo = h // 2, w // 2
     # reference image.cpp:268-277: taps outside [0, h-1] x [0, w-1] are
@@ -81,6 +99,30 @@ def downsample_once(img: np.ndarray, filter: int = 0) -> np.ndarray:
                 out = np.maximum(out, tap)
             else:
                 out = np.minimum(out, tap)
+    return out
+
+
+def _downsample_tensor(img: torch.Tensor, filter: int) -> torch.Tensor:
+    """downsample_once on a tensor: the 16 taps as strided slices of the
+    padded image, each a multiple of 1/64 of a u8 value, so the float32
+    sum is exact in any order (no convolution routine: cuDNN's Winograd
+    and FFT algorithms do not round like a sum of exact products)."""
+    h, w = img.shape[:2]
+    ho, wo = h // 2, w // 2
+    rest = tuple(img.shape[2:])
+    pad = img.new_full((h + 3, w + 3) + rest, 255.0 if filter == 2 else 0.0,
+                       dtype=torch.float32)
+    pad[1 : 1 + h, 1 : 1 + w] = img
+    out = pad.new_full((ho, wo) + rest, 255.0 if filter == 2 else 0.0)
+    for i in range(4):
+        for j in range(4):
+            tap = pad[i : i + 2 * ho : 2, j : j + 2 * wo : 2]
+            if filter == 0:
+                out.add_(tap, alpha=float(_K2D[i, j]))
+            elif filter == 1:
+                torch.maximum(out, tap, out=out)
+            else:
+                torch.minimum(out, tap, out=out)
     return out
 
 
@@ -271,8 +313,15 @@ def pairwise_view_distances(scene: Scene) -> np.ndarray:
     return dist + ang
 
 
-def pack_rgb(planes: np.ndarray) -> np.ndarray:
-    """[..., 3] u8-valued float planes -> [...] int32 r | g<<8 | b<<16."""
+def pack_rgb(planes):
+    """[..., 3] u8-valued float planes -> [...] int32 r | g<<8 | b<<16
+    (a numpy array, or a torch tensor on its device)."""
+    if isinstance(planes, torch.Tensor):
+        return (
+            planes[..., 0].to(torch.int32)
+            | (planes[..., 1].to(torch.int32) << 8)
+            | (planes[..., 2].to(torch.int32) << 16)
+        )
     return (
         planes[..., 0].astype(np.int32)
         | (planes[..., 1].astype(np.int32) << 8)
@@ -280,13 +329,16 @@ def pack_rgb(planes: np.ndarray) -> np.ndarray:
     )
 
 
-def pack_luma_quad(planes: np.ndarray, offsets: Sequence[int],
-                   widths: Sequence[int], heights: Sequence[int]) -> np.ndarray:
+def pack_luma_quad(planes, offsets: Sequence[int],
+                   widths: Sequence[int], heights: Sequence[int]):
     """[n, I, total, 3] u8-valued float planes -> [n, I, total] int32
     luma quads (copied from mvskit_tpu/image/scene.py:304-322): luma =
     clip(round(0.299 r + 0.587 g + 0.114 b), 0, 255); each pixel packs
     y(x, y) | y(x+1, y) << 8 | y(x, y+1) << 16 | y(x+1, y+1) << 24 with
-    x+1 / y+1 clamped at its level's edge."""
+    x+1 / y+1 clamped at its level's edge. `planes` is a numpy array,
+    or a torch tensor (the quads on its device, ``_luma_quad_tensor``)."""
+    if isinstance(planes, torch.Tensor):
+        return _luma_quad_tensor(planes, offsets, widths, heights)
     n, n_illums = planes.shape[:2]
     luma = np.clip(np.round(
         0.299 * planes[..., 0] + 0.587 * planes[..., 1]
@@ -307,6 +359,51 @@ def pack_luma_quad(planes: np.ndarray, offsets: Sequence[int],
     return lq
 
 
+def _luma_quad_tensor(planes: torch.Tensor, offsets: Sequence[int],
+                      widths: Sequence[int], heights: Sequence[int]) -> torch.Tensor:
+    """pack_luma_quad in numpy's float32 arithmetic: each product (the
+    weight rounded to float32) and each addition, left to right, its own
+    operation, so no compiler contracts them into an FMA; round half to
+    even. The quads by index gathers at each level's clamped x+1 / y+1."""
+    n, n_illums = planes.shape[:2]
+    luma = planes[..., 0] * 0.299
+    luma += planes[..., 1] * 0.587
+    luma += planes[..., 2] * 0.114
+    luma = luma.round_().clamp_(0, 255).to(torch.int32)
+    lq = torch.zeros_like(luma)
+    for o, wl, hl in zip(offsets, widths, heights):
+        lv = luma[..., o : o + wl * hl].reshape(n, n_illums, hl, wl)
+        xp = torch.arange(1, wl + 1, device=luma.device).clamp_(max=wl - 1)
+        yp = torch.arange(1, hl + 1, device=luma.device).clamp_(max=hl - 1)
+        below = lv[..., yp, :]
+        q = lv | (lv[..., xp] << 8) | (below << 16) | (below[..., xp] << 24)
+        lq[..., o : o + wl * hl] = q.reshape(n, n_illums, -1)
+    return lq
+
+
+def _scene(planes, planes_packed, planes_luma_quad, masks, cams, offsets,
+           widths, heights, max_level) -> Scene:
+    """A Scene of planes already on their device; the level metadata goes
+    there in one copy."""
+    with profiling.sync("scene.copy"):
+        meta = torch.tensor([list(offsets), list(widths), list(heights)],
+                            dtype=torch.int32, device=planes.device)
+    return Scene(
+        planes=planes,
+        planes_packed=planes_packed,
+        planes_luma_quad=planes_luma_quad,
+        masks=masks,
+        cams=cams,
+        lvl_offsets=meta[0],
+        lvl_widths=meta[1],
+        lvl_heights=meta[2],
+        widths=tuple(int(v) for v in widths),
+        heights=tuple(int(v) for v in heights),
+        offsets=tuple(int(v) for v in offsets),
+        max_level=int(max_level),
+    )
+
+
 def scene_from_planes(
     planes: np.ndarray,
     planes_packed: np.ndarray,
@@ -320,7 +417,7 @@ def scene_from_planes(
     planes_luma_quad: Optional[np.ndarray] = None,
 ) -> Scene:
     """Copy host-built planes onto `device` as a Scene (the luma quads
-    are built from `planes` unless given)."""
+    are built from `planes` unless given). Counts ``PYRAMIDS["host"]``."""
     dev = torch.device(device)
 
     def i32(a):
@@ -334,20 +431,10 @@ def scene_from_planes(
     if planes_luma_quad is None:
         planes_luma_quad = pack_luma_quad(
             np.asarray(planes, np.float32), offsets, widths, heights)
-    return Scene(
-        planes=f32(planes),
-        planes_packed=i32(planes_packed),
-        planes_luma_quad=i32(planes_luma_quad),
-        masks=None if masks is None else f32(masks),
-        cams=cams,
-        lvl_offsets=i32(offsets),
-        lvl_widths=i32(widths),
-        lvl_heights=i32(heights),
-        widths=tuple(int(v) for v in widths),
-        heights=tuple(int(v) for v in heights),
-        offsets=tuple(int(v) for v in offsets),
-        max_level=int(max_level),
-    )
+    PYRAMIDS["host"] += 1
+    return _scene(f32(planes), i32(planes_packed), i32(planes_luma_quad),
+                  None if masks is None else f32(masks), cams, offsets, widths,
+                  heights, max_level)
 
 
 def scene_from_arrays(
@@ -358,8 +445,12 @@ def scene_from_arrays(
     cams: Optional[CameraSet] = None,
     device="cuda",
 ) -> Scene:
-    """Build a Scene from in-memory arrays (pyramids built host-side,
-    as ``mvskit_tpu.image.scene.scene_from_arrays`` builds them).
+    """Build a Scene from in-memory arrays, its planes built on `device`
+    equal to the numpy functions' (``mvskit_tpu.image.scene.
+    scene_from_arrays`` builds them on the host). The images go to the
+    device in one copy; each pyramid level is one ``downsample_once``
+    step over every view and illumination ([H, W, n, I, 3]). Counts
+    ``PYRAMIDS["device"]``.
 
     images: per view either [H, W, 3] or [n_illums, H, W, 3] uint8.
     All views must share dimensions."""
@@ -383,14 +474,19 @@ def scene_from_arrays(
         offsets.append(total)
         total += ws[l] * hs[l]
 
-    planes = np.zeros((n, n_illums, total, 3), dtype=np.float32)
-    for v in range(n):
-        for il in range(n_illums):
-            pyr = build_pyramid(imgs[v][il], max_level)
-            for l in range(max_level):
-                planes[v, il, offsets[l] : offsets[l] + ws[l] * hs[l]] = pyr[
-                    l
-                ].reshape(-1, 3)
+    dev = torch.device(device)
+    with profiling.sync("scene.copy"):
+        stack = torch.from_numpy(np.stack(imgs)).to(dev)
+    # spatial axes first, views and illuminations trailing
+    levels = [stack.permute(2, 3, 0, 1, 4).to(torch.float32)]
+    for _ in range(1, max_level):
+        down = torch.as_tensor(downsample_once(levels[-1]), device=dev)
+        levels.append(torch.floor(down + 0.5).clamp_(0.0, 255.0))
+    planes = torch.cat([
+        lv.permute(2, 3, 0, 1, 4).reshape(n, n_illums, hs[l] * ws[l], 3)
+        for l, lv in enumerate(levels)
+    ], dim=2)
+    del stack, levels
 
     mask_arr = None
     if masks is not None and any(m is not None for m in masks):
@@ -403,13 +499,14 @@ def scene_from_arrays(
                 mask_arr[v, offsets[l] : offsets[l] + ws[l] * hs[l]] = (
                     mpyr[l].reshape(-1).astype(np.float32)
                 )
+        with profiling.sync("scene.copy"):
+            mask_arr = torch.tensor(mask_arr, device=dev)
 
     if cams is None:
         cams = make_camera_set(projections, device)
-    return scene_from_planes(
-        planes, pack_rgb(planes), mask_arr, cams, offsets, ws, hs,
-        max_level, device,
-    )
+    PYRAMIDS["device"] += 1
+    return _scene(planes, pack_rgb(planes), pack_luma_quad(planes, offsets, ws, hs),
+                  mask_arr, cams, offsets, ws, hs, max_level)
 
 
 def load_scene(
@@ -428,7 +525,8 @@ def load_scene(
       mask/%08d.{pgm,pbm}                optional masks
 
     The recorder sees span ``load``, and in it ``decode`` (the files)
-    and ``pyramid`` (the pyramids built and moved to the device).
+    and ``pyramid`` (the images moved to the device and the pyramids
+    built there).
     """
     with profiling.span("load"):
         n = len(image_ids)
